@@ -1,0 +1,537 @@
+#!/usr/bin/env python3
+"""Drive savtpu_torch's main path on one NVIDIA GPU and check its kernels.
+
+    python3 chip_smoke.py [--steps N] [--dtype float32|float64]
+
+``--steps`` sets the slice's depth (default 9,000; 100,000 is the
+published schedule); ``--dtype`` its state dtype in phase 3 (default
+float32, as published; float64, also compensated so that it runs the
+same kernel, separates round-off from the rest).
+
+Phases, each reported with its seconds and the running total against a
+600 s budget:
+
+0. device: name, count, and nvidia-smi's name and power limit;
+1. build: every CUDA kernel of the path, one nvcc per source, with the
+   ptxas register / shared-memory / spill report;
+2. each kernel against its plain PyTorch version at the slice's shapes,
+   on inputs made from a seed: bit for bit with the band zeroed, within
+   the stated tolerance with the slice's band, and a control that drops
+   the compensation, which the first check must reject;
+3. the slice: the five-stage pipeline (96x8x8 beam, 16 RCB parts, float32
+   compensated, banded, expfit modal-8 surrogate, 9,000 steps) through
+   ``api.Simulation(cfg).run_all``'s stages, with the kernel launch counts
+   of that run, the rel-L2 of the sync-avoiding run against the exchanged
+   one, and a small run on the GPU held against the same run on the CPU;
+4. kernel timing with CUDA events: kernel, plain version, bound, peak
+   device memory; and a torch.profiler look at the exchanged stepper
+   (device busy share, longest kernels).
+
+The last line is {"ok": true, "device": {...}}; the line before it is
+nvidia-smi's, and before that a {"kernels": [...]} summary. Any failure
+exits non-zero. Everything is written under a temporary directory outside
+the checkout, except the kernel libraries (savtpu_torch/_build/).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+BUDGET_S = 600.0
+SEED = 1234
+# 3,000 warm-up + two 3,000-step comm-free blocks. All 90 stored rows lie
+# inside the 1 s load ramp, so stage 3 takes expfit's frozen-ramp
+# fallback; --steps 100000 runs the published depth and the fit proper
+STEPS = 9000
+SAVE_EVERY = 50
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s off the
+# tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+
+class Clock:
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.t = self.t0
+
+    def phase(self, n, name, **fields):
+        now = time.perf_counter()
+        rec = {"phase": n, "name": name,
+               "elapsed_s": round(now - self.t, 3),
+               "total_s": round(now - self.t0, 3), "budget_s": BUDGET_S,
+               **fields}
+        print(json.dumps(rec), flush=True)
+        self.t = now
+
+
+def slice_config(workdir: Path, steps: int = STEPS, dtype: str = "float32"):
+    from savtpu_torch.config import Config
+
+    cfg = Config()
+    cfg.beam_cells = (96, 8, 8)
+    cfg.beam_extent = (12.0, 1.0, 1.0)
+    cfg.workdir = str(workdir / "Results")
+    cfg.model_dir = str(workdir / "Distributed_save")
+    cfg.partition.n_parts = 16
+    cfg.solver.dtype = dtype
+    cfg.solver.compensated = True   # float32's default; float64 too
+    cfg.solver.num_steps = steps
+    cfg.solver.save_every = SAVE_EVERY
+    s = cfg.surrogate
+    s.arch = "expfit"
+    s.modal_dim = 8
+    s.pred_consensus = False
+    s.stacked = True
+    return cfg
+
+
+def small_config(workdir: Path):
+    """A tiny banded compensated run (12x2x2, 4 parts, 100 steps)."""
+    from savtpu_torch.config import Config
+
+    cfg = Config()
+    cfg.beam_cells = (12, 2, 2)
+    cfg.beam_extent = (6.0, 1.0, 1.0)
+    cfg.workdir = str(workdir / "Results")
+    cfg.model_dir = str(workdir / "Distributed_save")
+    cfg.partition.n_parts = 4
+    cfg.solver.dtype = "float32"
+    cfg.solver.fint_mode = "banded"
+    cfg.solver.num_steps = 100
+    s = cfg.surrogate
+    s.n_past, s.n_future, s.filter_size = 4, 4, 5
+    s.arch = "expfit"
+    s.modal_dim = 3
+    s.expfit_order = 8
+    return cfg
+
+
+def k3_inputs(sp, dev, Tc, seed):
+    """Online-block inputs at the slice's shapes: the slice's band and
+    coefficients, seeded state and smooth seeded shared-DOF predictions."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    P, nc, Bk, _ = sp.band_Kd.shape
+    DLB, n = nc * Bk, sp.DL - 1
+    S3 = sp.sld.shape[1]
+
+    def fit(a, fill=0.0):
+        out = torch.full((P, DLB), fill, dtype=a.dtype, device=dev)
+        out[:, :n] = a[:, :n]
+        return out
+
+    bc, dm = fit(sp.bc_mask), fit(sp.dof_mask)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)  # noqa
+    hi = f32(1e-3 * rng.standard_normal((P, DLB))) * bc
+    v = f32(1e-6 * rng.standard_normal((P, DLB))) * bc
+    t = np.arange(Tc)[None, :, None]
+    amp = rng.uniform(1e-4, 5e-4, (P, 1, S3))
+    w = rng.uniform(0.001, 0.01, (P, 1, S3))
+    preds = (f32(amp * np.sin(w * t)) * sp.smask[:, None, :]).contiguous()
+    args = (sp.band_Kd, sp.band_Kl, hi, torch.zeros_like(hi), v,
+            fit(sp.F_pre), fit(sp.lM, 1.0), bc, dm, sp.sld, sp.smask, preds)
+    kw = dict(t0=0.05, i0=3000, dt=sp.dt, alpha=sp.alpha, ramped=sp.ramped,
+              save_every=SAVE_EVERY)
+    return args, kw
+
+
+def k3_bound(args, Tc, save_every):
+    """Least time for one online block on an H100: every input read once,
+    every output written once, against the float32 arithmetic."""
+    Kd, Kl, hi = args[0], args[1], args[2]
+    preds = args[-1]
+    P, nc, Bk, _ = Kd.shape
+    DLB, S3 = nc * Bk, preds.shape[2]
+    it = hi.element_size()
+    nbytes = (
+        (Kd.numel() + Kl.numel()) * it        # band
+        + 7 * P * DLB * it                    # state and coefficients
+        + P * S3 * (8 + it)                   # shared slot ids and mask
+        + preds.numel() * it                  # predictions in
+        + 3 * P * DLB * it                    # state out
+        + P * Tc * S3 * it                    # shared rows out
+        + P * (Tc // save_every) * DLB * it   # recorded trajectory out
+    )
+    # per step and part: the band matvec (2 (3nc-2) Bk^2), the translation
+    # mean (4 per DOF), the increment and the TwoSum roll (17 per DOF)
+    flops = P * Tc * (2 * (3 * nc - 2) * Bk * Bk + 21 * DLB)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32 * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), bound_by, nbytes, flops
+
+
+def zero_band(args):
+    """The online-block inputs with the band zeroed: no result then
+    depends on a sum order."""
+    import torch
+
+    return (torch.zeros_like(args[0]), torch.zeros_like(args[1]), *args[2:])
+
+
+def uncompensated_plain(args, kw):
+    """Control for the kernel checks: the plain version with the
+    compensation dropped. It runs one step at a time with lo reset to 0,
+    so hi rounds as hi += delta would."""
+    import torch
+
+    from savtpu_torch.ops.online_banded import online_chunk_plain
+
+    Kd, Kl, hi, lo, v, Fp, lM, bc, dm, sld, smask, preds = args
+    se = kw["save_every"]
+    shared, traj = [], []
+    for k in range(preds.shape[1]):
+        hi, lo, v, sh, tr = online_chunk_plain(
+            Kd, Kl, hi, torch.zeros_like(lo), v, Fp, lM, bc, dm, sld, smask,
+            preds[:, k : k + 1], **{**kw, "i0": kw["i0"] + k,
+                                    "save_every": 1},
+        )
+        shared.append(sh)
+        if k % se == 0:
+            traj.append(tr)
+    return hi, lo, v, torch.cat(shared, dim=1), torch.cat(traj, dim=1)
+
+
+def check_online_block(args, kw):
+    """Hold the online block's kernel against its plain version, and show
+    that the checks reject a control that drops the compensation.
+
+    rounding: band zeroed, kernel and plain version equal bit for bit
+    (every output, lo included); band: the slice's band, the compensated
+    state, v and the recordings within RTOL of their scale. Returns the
+    readings, with the checks that failed under "failures" (the control
+    passing the rounding check is one)."""
+    from savtpu_torch.ops.online_banded import (
+        RTOL,
+        block_distance,
+        online_chunk,
+        online_chunk_plain,
+    )
+
+    rtol = RTOL[args[2].dtype]
+    every = ("hi", "lo", "v", "shared", "traj")
+    limited = ("state", "v", "shared", "traj")
+
+    def worst(d, keys, field):
+        return max(d[k][field] for k in keys)
+
+    zargs = zero_band(args)
+    ref = online_chunk_plain(*zargs, **kw)
+    rounding = {"kernel": block_distance(online_chunk(*zargs, **kw), ref),
+                "control": block_distance(uncompensated_plain(zargs, kw), ref)}
+    ref = online_chunk_plain(*args, **kw)
+    out_k = online_chunk(*args, **kw)
+    for name, t in zip(every, out_k):
+        if not bool(t.isfinite().all()):
+            raise RuntimeError(f"kernel output {name} is not finite")
+    ctl = uncompensated_plain(args, kw)
+    band = {"kernel": block_distance(out_k, ref),
+            "control": block_distance(ctl, ref)}
+    args64 = [a.double() if a.is_floating_point() else a for a in args]
+    ref64 = online_chunk_plain(*args64, **kw)
+    vs64 = {name: block_distance(o, ref64)["state"]["max_rel"]
+            for name, o in (("kernel", out_k), ("plain", ref),
+                            ("control", ctl))}
+    res = {
+        "rtol": rtol,
+        "rounding_kernel_max_abs": worst(rounding["kernel"], every, "max_abs"),
+        "rounding_control_max_abs": worst(rounding["control"], every,
+                                          "max_abs"),
+        "band_kernel_max_rel": worst(band["kernel"], limited, "max_rel"),
+        "band_control_max_rel": worst(band["control"], limited, "max_rel"),
+        "max_abs_err": worst(band["kernel"], limited, "max_abs"),
+        "state_vs_float64_plain": vs64,
+        "rounding": rounding,
+        "band": band,
+    }
+    res["band_control_rejected"] = res["band_control_max_rel"] > rtol
+    res["failures"] = [msg for bad, msg in (
+        (res["rounding_control_max_abs"] == 0.0,
+         "the rounding check does not see a dropped compensation"),
+        (res["rounding_kernel_max_abs"] != 0.0,
+         "the kernel rounds unlike its plain version with the band zeroed"),
+        (not res["band_kernel_max_rel"] <= rtol,
+         "the kernel disagrees with its plain version beyond rtol"),
+    ) if bad]
+    return res
+
+
+def stepper_profile(sp, dev, steps):
+    """Wall and device time per step of the exchanged (stage-1) stepper at
+    the slice's shapes, from torch.profiler: the device's busy share and
+    its five longest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    d0 = torch.zeros((sp.n_parts, sp.DL), dtype=sp.dtype, device=dev)
+    sp.stacked_run(d0, d0, 0.0, 20, sync=True, record="traj")  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sp.stacked_run(d0, d0, 0.0, steps, sync=True, record="traj")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    # kernel events only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {
+        "steps": steps,
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "device_ms_per_step": (busy_us * 1e-3 / steps) if rows
+        else "not measured",
+        "device_busy_share": (busy_us * 1e-6 / wall) if rows
+        else "not measured",
+        "top_kernels_ms_per_step": {k[:60]: t * 1e-3 / steps
+                                    for k, t in rows[:5]},
+    }
+
+
+def run_stages(cfg, dev):
+    """The five stages through api.Simulation, timed one by one."""
+    import torch
+
+    from savtpu_torch import api
+
+    sim = api.Simulation(cfg, device=dev, verbose=False)
+    times = {}
+    for name, fn in (("stage1_s", sim.generate_data),
+                     ("stage2_s", sim.extract_shared),
+                     ("stage3_s", sim.train),
+                     ("stage4_s", sim.run_online),
+                     ("stage5_s", sim.compare)):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name] = round(time.perf_counter() - t0, 3)
+    return sim, res, times
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=STEPS,
+                    help="slice depth in steps (a multiple of save_every, "
+                         "50)")
+    ap.add_argument("--dtype", choices=("float32", "float64"),
+                    default="float32",
+                    help="the slice's state dtype in phase 3 (the "
+                         "published run is float32)")
+    opts = ap.parse_args(argv)
+    steps = opts.steps
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "savtpu_torch" / "__init__.py").exists():
+        print("chip_smoke: savtpu_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from savtpu_torch.io.artifacts import ArtifactStore, load_displacement
+    from savtpu_torch.ops import kernels
+    from savtpu_torch.ops.online_banded import (
+        RTOL,
+        online_chunk,
+        online_chunk_plain,
+    )
+    from savtpu_torch.pipeline.common import build_context
+
+    clock = Clock()
+    dev = torch.device("cuda")
+    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    clock.phase(0, "device", kind=name, count=count, nvidia_smi=smi,
+                torch=torch.__version__, cuda=torch.version.cuda)
+
+    built = kernels.build_all(["online_banded"])
+    ptxas = [ln.strip() for b in built.values() for ln in b.log.splitlines()
+             if any(k in ln for k in ("registers", "spill", "smem",
+                                      "stack frame"))]
+    for ln in ptxas:
+        print(f"[ptxas] {ln}")
+    clock.phase(1, "build", build_s={k: round(b.seconds, 3)
+                                     for k, b in built.items()})
+
+    tmp = Path(tempfile.mkdtemp(prefix="savtpu_torch_smoke_"))
+    try:
+        # ---- phase 2: the kernel against its plain version ----
+        cfg = slice_config(tmp / "k3")
+        ctx = build_context(cfg, device=dev)
+        sp = ctx.sp
+        Tc = cfg.surrogate.block_size
+        args, kw = k3_inputs(sp, dev, Tc, SEED)
+        P, nc, Bk, _ = sp.band_Kd.shape
+        shapes = dict(P=P, nc=nc, Bk=Bk, S3=int(sp.sld.shape[1]), Tc=Tc,
+                      save_every=SAVE_EVERY, dtype="float32")
+        k3 = check_online_block(args, kw)
+        torch.cuda.synchronize()
+        clock.phase(2, "online_banded_vs_plain", shapes=shapes, **k3)
+        if k3["failures"]:
+            raise RuntimeError(f"online_banded: {k3['failures']}")
+        max_abs_err = k3["max_abs_err"]
+
+        # ---- phase 3: the slice through the user's entry points ----
+        cfg = slice_config(tmp / "slice", steps, opts.dtype)
+        online_chunk.launches = 0
+        sim, metrics, times = run_stages(cfg, dev)
+        launches = online_chunk.launches
+        blocks = -(-(steps - cfg.surrogate.i_cri - 1)
+                   // cfg.surrogate.block_size)
+        events = {}
+        for line in (Path(cfg.workdir) / "metrics.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            events[rec["event"]] = rec
+        store = ArtifactStore(cfg.workdir, cfg.model_dir,
+                              cfg.surrogate.run_tag())
+        n_warm = (cfg.surrogate.i_cri + 1) // SAVE_EVERY
+        err_sq = ref_sq = warm_err = 0.0
+        per_rank = {}
+        for r in range(cfg.partition.n_parts):
+            exact = load_displacement(store.dynamics_h5(r))
+            model = load_displacement(store.modeled_h5(r))
+            if (exact.shape != model.shape
+                    or exact.shape[1] != steps // SAVE_EVERY):
+                raise RuntimeError(f"rank {r}: trajectory shapes {exact.shape}"
+                                   f" vs {model.shape}")
+            if not (np.isfinite(exact).all() and np.isfinite(model).all()):
+                raise RuntimeError(f"rank {r}: non-finite trajectory")
+            warm_err = max(warm_err, float(
+                np.abs(exact[:, :n_warm] - model[:, :n_warm]).max()
+                / max(np.abs(exact[:, :n_warm]).max(), 1e-30)))
+            local = store.load_int_csv(store.local_nodes_csv(r))
+            shared = set(store.load_int_csv(store.shared_csv(r)).tolist())
+            keep = np.repeat([int(g) not in shared for g in local], 3)
+            d = exact[keep, n_warm:] - model[keep, n_warm:]
+            e2, r2 = float((d * d).sum()), float((exact[keep, n_warm:] ** 2).sum())
+            per_rank[r] = math.sqrt(e2 / max(r2, 1e-300))
+            err_sq += e2
+            ref_sq += r2
+        commfree = math.sqrt(err_sq / max(ref_sq, 1e-300))
+        rel = [metrics["global_rel_l2_nonshared"], commfree,
+               *per_rank.values()]
+        clock.phase(
+            3, "slice_96x8x8_p16",
+            stage_s=times,
+            stage1_steps_per_s=events["stage1_solve"]["steps_per_sec"],
+            stage4_steps_per_s=events["stage4_online"]["steps_per_sec"],
+            setup=events["setup_breakdown"],
+            online_banded_launches=launches, blocks=blocks,
+            plotter_metrics=metrics,
+            commfree_rel_l2_nonshared=commfree,
+            commfree_rel_l2_per_rank=per_rank,
+            warmup_rows_max_rel_diff=warm_err,
+        )
+        if launches < max(blocks, 2):
+            raise RuntimeError(
+                f"online_banded launched {launches} times in the slice "
+                f"(expected one per comm-free block, {blocks})"
+            )
+        if not all(math.isfinite(x) for x in rel):
+            raise RuntimeError(f"non-finite rel-L2: {rel}")
+        if warm_err > 1e-6:
+            raise RuntimeError(
+                f"stage-4 warm-up rows differ from stage 1: {warm_err:.3e}"
+            )
+        del sim
+
+        # small run: stage 4 on the GPU (kernel) against the same stage on
+        # the CPU (plain version), from the same stage 1-3 artifacts
+        from savtpu_torch.pipeline import online_predictor, run_all
+
+        c_cpu = small_config(tmp / "small_cpu")
+        run_all.run(c_cpu, verbose=False, device="cpu")
+        shutil.copytree(tmp / "small_cpu", tmp / "small_gpu")
+        c_gpu = small_config(tmp / "small_gpu")
+        online_predictor.run(c_gpu, verbose=False, device=dev)
+        outs = []
+        for c in (c_cpu, c_gpu):
+            st = ArtifactStore(c.workdir, c.model_dir, c.surrogate.run_tag())
+            outs.append(np.concatenate([
+                load_displacement(st.modeled_h5(r)).ravel()
+                for r in range(c.partition.n_parts)
+            ]))
+        small_err = float(np.abs(outs[1] - outs[0]).max()
+                          / np.abs(outs[0]).max())
+        small_rtol = RTOL[torch.float32]
+        clock.phase(3, "small_stage4_gpu_vs_cpu", max_rel=small_err,
+                    rtol=small_rtol)
+        if not small_err <= small_rtol:
+            raise RuntimeError(f"small run: GPU vs CPU {small_err:.3e}")
+
+        # ---- phase 4: timing ----
+        bound_ms, bound_by, nbytes, flops = k3_bound(args, Tc, SAVE_EVERY)
+        torch.cuda.reset_peak_memory_stats()
+
+        def timed(fn, reps):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for _ in range(reps):
+                fn(*args, **kw)
+            ev1.record()
+            torch.cuda.synchronize()
+            return ev0.elapsed_time(ev1) / reps
+
+        saved = online_chunk.launches
+        online_chunk(*args, **kw)  # warm-up
+        plain_a = timed(online_chunk_plain, 1)
+        kern = timed(online_chunk, 5)
+        plain_b = timed(online_chunk_plain, 1)
+        online_chunk.launches = saved
+        plain_ms = 0.5 * (plain_a + plain_b)
+        clock.phase(4, "online_banded_timing", ms=kern, plain_ms=plain_ms,
+                    plain_ms_runs=[plain_a, plain_b], bound_ms=bound_ms,
+                    bound_by=bound_by, bytes=nbytes, flops=flops,
+                    max_memory_allocated=torch.cuda.max_memory_allocated())
+        clock.phase(4, "exchanged_stepper_profile",
+                    **stepper_profile(ctx.sp, dev, steps=300))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print(json.dumps({"kernels": [{
+        "name": "online_banded",
+        "route": "cuda",
+        "source": "savtpu_torch/csrc/online_banded.cu",
+        "replaces": "savtpu/ops/pallas_banded.py:234",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": kern,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

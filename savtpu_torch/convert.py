@@ -1,0 +1,159 @@
+"""Carry state from the JAX package (savtpu) over to this port.
+
+- :func:`from_savtpu_arrays` takes a savtpu ``ShardedProblem``'s arrays
+  and stage-3 expfit params with their sidecars, as numpy arrays and
+  dicts, and returns the port's ``ShardedProblem`` and ``RankModel``s.
+- :func:`import_savtpu_run` copies a savtpu run directory's artifacts
+  (label CSVs, stage-1/2 trajectories, stage-3 models, the run log) into
+  a port ``ArtifactStore``, so any later stage of the port can start from
+  them. savtpu writes trajectories as HDF5 (or ``.npz`` without h5py) and
+  params as flax msgpack; this package reads neither format's library,
+  so the caller passes the readers for those files.
+"""
+
+from __future__ import annotations
+
+import shutil
+from pathlib import Path
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .io.artifacts import (
+    ArtifactStore,
+    load_params_meta,
+    save_displacement,
+    save_params,
+)
+from .parallel.sharded import ShardedProblem, _owner_table
+from .pipeline.online_predictor import RankModel
+
+# ShardedProblem fields that are tensors on the device
+_FLOAT_FIELDS = ("dof_mask", "bc_mask", "lM", "F_pre", "smask", "denseK",
+                 "band_Kd", "band_Kl")
+_INT_FIELDS = ("sld", "sgi")
+_SCALARS = ("n_parts", "DL", "SD", "dt", "alpha", "ramped", "fint_mode",
+            "compensated")
+
+
+def from_savtpu_arrays(
+    sp_arrays: Dict,
+    models: Iterable[Tuple[Dict, Dict]] = (),
+    device="cpu",
+    dtype=None,
+):
+    """Build the port's objects from savtpu state given as numpy.
+
+    ``sp_arrays`` maps field names of savtpu's ``ShardedProblem`` to
+    values: the scalars n_parts, DL, SD, dt, alpha, ramped, fint_mode,
+    compensated, the arrays local_dofs_global, dof_mask, bc_mask, lM,
+    F_pre, sld, sgi, smask, and denseK (dense mode) or band_Kd/band_Kl
+    (banded mode). ``models`` holds one (params, sidecar) pair per rank
+    of the expfit surrogate. Returns (ShardedProblem, [RankModel])."""
+    missing = [k for k in _SCALARS + ("local_dofs_global",) + _INT_FIELDS
+               if k not in sp_arrays]
+    if missing:
+        raise KeyError(f"savtpu ShardedProblem arrays lack {missing}")
+    if sp_arrays["fint_mode"] not in ("dense", "banded"):
+        raise NotImplementedError(
+            f"fint_mode {sp_arrays['fint_mode']!r} is not ported yet"
+        )
+    dev = torch.device(device)
+    dtype = dtype or torch.as_tensor(np.array(sp_arrays["lM"])).dtype
+    kw = {k: sp_arrays[k] for k in _SCALARS}
+    for k in _FLOAT_FIELDS:
+        if sp_arrays.get(k) is not None:
+            kw[k] = torch.as_tensor(np.array(sp_arrays[k]),
+                                    dtype=dtype).to(dev)
+    for k in _INT_FIELDS:
+        kw[k] = torch.as_tensor(
+            np.array(sp_arrays[k], dtype=np.int64)).to(dev)
+    sgi = np.asarray(sp_arrays["sgi"], dtype=np.int64)
+    smask = np.asarray(sp_arrays["smask"])
+    sp = ShardedProblem(
+        local_dofs_global=np.asarray(sp_arrays["local_dofs_global"]),
+        owners=torch.as_tensor(
+            _owner_table(sgi, smask, int(sp_arrays["SD"]))).to(dev),
+        **kw,
+    )
+    rank_models = []
+    for params, meta in models:
+        modal = None
+        if meta.get("modal_dim"):
+            modal = (np.asarray(meta["modal_mean"], dtype=np.float64),
+                     np.asarray(meta["modal_basis"], dtype=np.float64))
+        rank_models.append(RankModel(
+            {k: np.asarray(v, dtype=np.float64) for k, v in params.items()},
+            int(meta["input_size"]), modal, dict(meta),
+        ))
+    return sp, rank_models
+
+
+def _trajectory(path: Path, read_h5: Optional[Callable]) -> np.ndarray:
+    """A savtpu trajectory artifact: the .npz sibling when savtpu wrote
+    one, else the HDF5 file through ``read_h5``."""
+    npz = path.with_suffix(".npz")
+    if npz.exists():
+        return np.load(npz)["Displacement"]
+    if read_h5 is None:
+        raise FileNotFoundError(
+            f"{path}: an HDF5 trajectory needs a read_h5 callable"
+        )
+    return np.asarray(read_h5(path))
+
+
+def import_savtpu_run(
+    src_workdir,
+    src_model_dir,
+    n_parts: int,
+    store: ArtifactStore,
+    *,
+    read_h5: Optional[Callable[[Path], np.ndarray]] = None,
+    read_params: Optional[Callable[[Path, Dict], Dict]] = None,
+    stages: Iterable[int] = (1, 2, 3),
+) -> None:
+    """Copy a savtpu run's artifacts of the given stages into ``store``.
+
+    Stage 1: label CSVs, the steady VTK, Dynamics/Local-rank-<r> and the
+    run log (metrics.jsonl, where stage 3 reads the stage-1 dt). Stage 2:
+    sol_on_shared/rank=<r>-shared_dof. Stage 3: each rank's model and
+    sidecar, with ``read_params(msgpack_path, sidecar) -> {name: array}``
+    reading savtpu's flax msgpack (savtpu's sidecar tag directory is
+    ``store.tag``)."""
+    src = Path(src_workdir)
+    src_models = Path(src_model_dir)
+    stages = set(stages)
+    if 1 in stages:
+        for sub in ("Rankwised_Data", "Shared_Data", "Rankwised_Element",
+                    "Static"):
+            if (src / sub).exists():
+                shutil.copytree(src / sub, store.workdir / sub,
+                                dirs_exist_ok=True)
+        store.workdir.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(src / "metrics.jsonl",
+                        store.workdir / "metrics.jsonl")
+        for r in range(n_parts):
+            save_displacement(
+                store.dynamics_h5(r),
+                _trajectory(src / "Dynamics" / f"Local-rank-{r}.hdf5",
+                            read_h5),
+            )
+    if 2 in stages:
+        for r in range(n_parts):
+            save_displacement(
+                store.shared_dof_h5(r),
+                _trajectory(src / "sol_on_shared" /
+                            f"rank={r}-shared_dof.hdf5", read_h5),
+            )
+    if 3 in stages:
+        for r in range(n_parts):
+            mf = src_models / f"Rank-{r}" / store.tag / "model.msgpack"
+            meta = load_params_meta(mf)
+            if read_params is None:
+                raise FileNotFoundError(
+                    f"{mf}: flax msgpack params need a read_params callable"
+                )
+            params = {k: np.asarray(v)
+                      for k, v in read_params(mf, meta).items()}
+            save_params(store.model_file(r), params, meta=meta)
