@@ -12,20 +12,30 @@ Phases, each reported with its seconds and the running total against a
 600 s budget:
 
 0. device: name, count, and nvidia-smi's name and power limit;
-1. build: every CUDA kernel of the path, one nvcc per source, with the
-   ptxas register / shared-memory / spill report;
-2. each kernel against its plain PyTorch version at the slice's shapes,
-   on inputs made from a seed: bit for bit with the band zeroed, within
-   the stated tolerance with the slice's band, and a control that drops
-   the compensation, which the first check must reject;
-3. the slice: the five-stage pipeline (96x8x8 beam, 16 RCB parts, float32
-   compensated, banded, expfit modal-8 surrogate, 9,000 steps) through
-   ``api.Simulation(cfg).run_all``'s stages, with the kernel launch counts
-   of that run, the rel-L2 of the sync-avoiding run against the exchanged
-   one, and a small run on the GPU held against the same run on the CPU;
-4. kernel timing with CUDA events: kernel, plain version, bound, peak
-   device memory; and a torch.profiler look at the exchanged stepper
-   (device busy share, longest kernels).
+1. build: every CUDA kernel of the paths below, one nvcc per source, all
+   at once, with the ptxas register / shared-memory / spill report;
+2. each kernel against its plain PyTorch version, on inputs made from a
+   seed: the online kernel (K3) at the slice's shapes, bit for bit with
+   the band zeroed, within its tolerance with the band, and a control
+   that drops the compensation, which the first check must reject; K1,
+   K2 (with and without predictions, shared rows recorded) and K4 at the
+   shapes of the sweep cases that run them, K2 and K4 bit for bit with
+   the operator zeroed, each within its tolerance with the operator, and
+   each with a control that the same comparison must reject;
+3. the paths: the slice, the five-stage pipeline (96x8x8 beam, 16 RCB
+   parts, float32 compensated, banded, expfit modal-8 surrogate, 9,000
+   steps) through ``api.Simulation(cfg).run_all``'s stages, with the K3
+   launch count of that run, the rel-L2 of the sync-avoiding run against
+   the exchanged one, and a small run on the GPU held against the same
+   run on the CPU; then the scale-out sweep's cases that run K1, K2 and
+   K4 (48x4x4/8 and 96x8x8/8 pallas, 96x8x8/16 banded) through
+   ``savtpu_torch.benchmarks.sweep.bench_case`` with the sweep's step
+   counts, each case's launch counts, steps/s and device memory peak, and
+   tiny sweep problems on the GPU held against the CPU;
+4. kernel timing with CUDA events: kernel, plain version, bound, the
+   PyTorch call that computes the same function where there is one (K1:
+   torch.bmm), peak device memory; and a torch.profiler look at the
+   exchanged stepper (device busy share, longest kernels).
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's, and before that a {"kernels": [...]} summary. Any failure
@@ -267,6 +277,387 @@ def check_online_block(args, kw):
     return res
 
 
+def bound_ms(nbytes, flops):
+    """Least time on an H100 for work that moves ``nbytes`` (each input
+    read once, each output written once) and does ``flops`` float
+    operations: the larger of the two times, and which one it is."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def tf32(x):
+    """x rounded to TF32 (10 mantissa bits, ties away from zero), as a
+    float32 tensor: what a TF32 tensor-core product reads."""
+    import torch
+
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def worst_abs(out_a, out_b):
+    """Largest max |a - b| over paired outputs (None pairs skipped)."""
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(out_a, out_b) if a is not None)
+
+
+def check_fint_matvec(K, d):
+    """K1 against its plain version; the control is the plain product on
+    TF32-rounded inputs, which the same comparison must reject."""
+    from savtpu_torch.ops.dense_step import (
+        MATVEC_RTOL,
+        batched_fint_matvec,
+        batched_fint_matvec_plain,
+        scaled_error,
+    )
+
+    rtol = MATVEC_RTOL[d.dtype]
+    ref = batched_fint_matvec_plain(K, d)
+    out_k = batched_fint_matvec(K, d)
+    ctl = batched_fint_matvec_plain(tf32(K), tf32(d)).to(d.dtype)
+    res = {
+        "rtol": rtol,
+        "kernel_max_rel": scaled_error([out_k], [ref]),
+        "control_max_rel": scaled_error([ctl], [ref]),
+        "max_abs_err": worst_abs([out_k], [ref]),
+    }
+    res["failures"] = [msg for bad, msg in (
+        (not bool(out_k.isfinite().all()), "K1 output is not finite"),
+        (not res["kernel_max_rel"] <= rtol,
+         "K1 disagrees with its plain version beyond rtol"),
+        (not res["control_max_rel"] > rtol,
+         "the K1 check does not reject the TF32 control"),
+    ) if bad]
+    return res
+
+
+def scan_inputs(sp, steps, seed):
+    """K2 inputs at a problem's shapes: its K and coefficients, a seeded
+    state and smooth seeded shared-DOF predictions. Returns (args,
+    preds, kw) for scan_comm_free(*args, preds, **kw)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    P, DL, S3 = sp.n_parts, sp.DL, sp.sld.shape[1]
+    T = lambda a: torch.as_tensor(a, dtype=sp.dtype).to(sp.device)  # noqa
+    d0 = T(1e-3 * rng.standard_normal((P, DL))) * sp.bc_mask
+    dn = d0 - T(1e-6 * rng.standard_normal((P, DL))) * sp.bc_mask
+    t = np.arange(steps)[None, :, None]
+    preds = (T(rng.uniform(1e-4, 5e-4, (P, 1, S3))
+               * np.sin(rng.uniform(0.001, 0.01, (P, 1, S3)) * t))
+             * sp.smask[:, None, :]).contiguous()
+    args = (sp.denseK, d0, dn, 0.05, sp.F_pre, sp.lM, sp.bc_mask, sp.sld,
+            sp.smask)
+    kw = dict(num_steps=steps, dt=sp.dt, alpha=sp.alpha, ramped=sp.ramped)
+    return args, preds, kw
+
+
+def check_scan_comm_free(sp, steps, seed):
+    """K2 against its plain version, with and without predictions, the
+    shared rows recorded. rounding: K zeroed, kernel and plain version
+    equal bit for bit; with K, within SCAN_RTOL of the plain state's
+    scale. The control, the plain version with the overwrite dropped,
+    must fail the same comparison."""
+    import torch
+
+    from savtpu_torch.ops.dense_step import (
+        SCAN_RTOL,
+        scaled_error,
+        scan_comm_free,
+        scan_comm_free_plain,
+    )
+
+    args, preds, kw = scan_inputs(sp, steps, seed)
+    rtol = SCAN_RTOL[sp.dtype]
+    zargs = (torch.zeros_like(args[0]), *args[1:])
+    rounding, kernel, abs_err = 0.0, 0.0, 0.0
+    for p in (None, preds):
+        a = scan_comm_free(*zargs, p, record_shared=True, **kw)
+        b = scan_comm_free_plain(*zargs, p, record_shared=True, **kw)
+        rounding = max(rounding, worst_abs(a, b))
+        out_k = scan_comm_free(*args, p, record_shared=True, **kw)
+        ref = scan_comm_free_plain(*args, p, record_shared=True, **kw)
+        if not all(bool(t.isfinite().all()) for t in out_k):
+            raise RuntimeError("K2 output is not finite")
+        kernel = max(kernel, scaled_error(out_k, ref))
+        abs_err = max(abs_err, worst_abs(out_k, ref))
+    # ref is now the plain version with predictions
+    ctl = scan_comm_free_plain(*args, None, record_shared=True, **kw)
+    res = {
+        "rtol": rtol, "steps": steps,
+        "rounding_kernel_max_abs": rounding,
+        "kernel_max_rel": kernel,
+        "control_max_rel": scaled_error(ctl, ref),
+        "max_abs_err": abs_err,
+    }
+    res["failures"] = [msg for bad, msg in (
+        (rounding != 0.0,
+         "K2 rounds unlike its plain version with K zeroed"),
+        (not kernel <= rtol,
+         "K2 disagrees with its plain version beyond rtol"),
+        (not res["control_max_rel"] > rtol,
+         "the K2 check does not reject the dropped-overwrite control"),
+    ) if bad]
+    return res
+
+
+def band_matvec_no_super(Kd, Kl, x):
+    """Control for the K4 check: the band matvec without its
+    super-diagonal term Kl[c+1]^T x_{c+1}."""
+    import torch
+
+    P = x.shape[0]
+    _, nc, Bk, _ = Kd.shape
+    xc = x.reshape(P, nc, Bk, 1)
+    y = torch.matmul(Kd, xc)
+    if nc > 1:
+        y[:, 1:] = y[:, 1:] + torch.matmul(Kl[:, 1:], xc[:, :-1])
+    return y.reshape(P, nc * Bk)
+
+
+def check_banded_scan(sp, steps, seed):
+    """K4 against its plain version: band zeroed, bit for bit; with the
+    band, within banded_scan.RTOL of the plain state's scale. The
+    control, the plain version whose band matvec drops the
+    super-diagonal term, must fail the same comparison."""
+    import numpy as np
+    import torch
+
+    from savtpu_torch.ops.banded_scan import (
+        RTOL,
+        scan_comm_free_banded,
+        scan_comm_free_banded_plain,
+    )
+    from savtpu_torch.ops.dense_step import scaled_error
+
+    rng = np.random.default_rng(seed)
+    P, DL = sp.n_parts, sp.DL
+    T = lambda a: torch.as_tensor(a, dtype=sp.dtype).to(sp.device)  # noqa
+    d0 = T(1e-3 * rng.standard_normal((P, DL))) * sp.bc_mask
+    dn = d0 - T(1e-6 * rng.standard_normal((P, DL))) * sp.bc_mask
+    args = (sp.band_Kd, sp.band_Kl, d0, dn, 0.05, sp.F_pre, sp.lM,
+            sp.bc_mask)
+    kw = dict(num_steps=steps, dt=sp.dt, alpha=sp.alpha, ramped=sp.ramped)
+    rtol = RTOL[sp.dtype]
+    zargs = (torch.zeros_like(args[0]), torch.zeros_like(args[1]),
+             *args[2:])
+    rounding = worst_abs(scan_comm_free_banded(*zargs, **kw),
+                         scan_comm_free_banded_plain(*zargs, **kw))
+    out_k = scan_comm_free_banded(*args, **kw)
+    if not all(bool(t.isfinite().all()) for t in out_k):
+        raise RuntimeError("K4 output is not finite")
+    ref = scan_comm_free_banded_plain(*args, **kw)
+    ctl = scan_comm_free_banded_plain(*args, matvec=band_matvec_no_super,
+                                      **kw)
+    res = {
+        "rtol": rtol, "steps": steps,
+        "rounding_kernel_max_abs": rounding,
+        "kernel_max_rel": scaled_error(out_k, ref),
+        "control_max_rel": scaled_error(ctl, ref),
+        "max_abs_err": worst_abs(out_k, ref),
+    }
+    res["failures"] = [msg for bad, msg in (
+        (rounding != 0.0,
+         "K4 rounds unlike its plain version with the band zeroed"),
+        (not res["kernel_max_rel"] <= rtol,
+         "K4 disagrees with its plain version beyond rtol"),
+        (not res["control_max_rel"] > rtol,
+         "the K4 check does not reject the no-super-diagonal control"),
+    ) if bad]
+    return res
+
+
+def event_ms(fn, reps):
+    """Mean time of ``reps`` calls of fn() on the card, from CUDA events,
+    in ms."""
+    import torch
+
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / reps
+
+
+def in_turns(plain, kernel, plain_reps, kernel_reps):
+    """Time a kernel and its plain version in turns (plain, kernel,
+    plain) after one warm-up call of the kernel. Returns (kernel ms, mean
+    plain ms, [plain ms of each turn])."""
+    kernel()
+    a = event_ms(plain, plain_reps)
+    k = event_ms(kernel, kernel_reps)
+    b = event_ms(plain, plain_reps)
+    return k, 0.5 * (a + b), [a, b]
+
+
+# the sweep's cases whose path runs K1, K2 and K4: (mesh, parts, mode)
+SWEEP_PATH = (("48x4x4", 8, "pallas"), ("96x8x8", 8, "pallas"),
+              ("96x8x8", 16, "banded"))
+
+
+def sweep_path_cases():
+    """Those cases as the sweep lists them (psum, uncompensated), with the
+    sweep's own step counts."""
+    from savtpu_torch.benchmarks import sweep
+
+    cases = {sweep.case_tag(c)[:3]: c for c in sweep.CASES
+             if sweep.case_tag(c)[:3] in SWEEP_PATH
+             and sweep.case_tag(c)[3:] == ("psum", False)}
+    if sorted(cases) != sorted(SWEEP_PATH):
+        raise RuntimeError(f"the sweep lacks a case of {SWEEP_PATH}")
+    return [cases[k] for k in SWEEP_PATH]
+
+
+def run_sweep_path(dev):
+    """The sweep's cases on K1, K2 and K4 through its entry point,
+    ``bench_case``: every launch count is set to 0 just before each case
+    and read just after. A pallas case must launch K1 once per exchanged
+    step (an untimed and a timed run) and K2 once per comm-free run; a
+    banded case K4 once per comm-free run. Returns (rows, total launches
+    per kernel)."""
+    import torch
+
+    from savtpu_torch.benchmarks import sweep
+
+    rows, totals = [], dict.fromkeys(sweep.KERNELS, 0)
+    for case in sweep_path_cases():
+        for fn in sweep.KERNELS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        row = sweep.bench_case(*case, device=dev)
+        counts = {k: fn.launches for k, fn in sweep.KERNELS.items()}
+        steps = case[5]
+        expect = dict.fromkeys(sweep.KERNELS, 0)
+        if row["fint_mode"] == "pallas":
+            expect.update(fint_matvec=2 * steps, scan_comm_free=2)
+        else:
+            expect.update(scan_comm_free_banded=2)
+        row.update(steps=steps, kernel_launches=counts,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   resident_before=resident,
+                   case_s=time.perf_counter() - t0)
+        rows.append(row)
+        if counts != expect:
+            raise RuntimeError(f"{case}: launches {counts}, expected "
+                               f"{expect}")
+        for k in totals:
+            totals[k] += counts[k]
+    return rows, totals
+
+
+def small_sweep_gpu_vs_cpu(dev, steps=200):
+    """Tiny pallas and banded sweep problems in float64 through
+    ShardedSolver.run on the card (K1, K2, K4) and on the CPU (their plain
+    versions): the comm-free and exchanged final states, scaled error."""
+    import numpy as np
+    import torch
+
+    from savtpu_torch.benchmarks.sweep import build_case
+    from savtpu_torch.ops.dense_step import scaled_error
+    from savtpu_torch.parallel import ShardedSolver
+
+    worst = {}
+    for case in ((8, 1, 1, 2, "pallas"), (25, 2, 2, 2, "banded")):
+        outs = []
+        for device in (dev, torch.device("cpu")):
+            prob, sp = build_case(*case, device=device, dtype=torch.float64)
+            sol = ShardedSolver(sp)
+            d0 = sp.localize(np.zeros(prob.ndof))
+            res = []
+            for sync in (False, True):
+                (_, _), c = sol.run(d0, d0, 0.0, steps, sync=sync,
+                                    record="none")
+                res += [c[0].cpu(), c[1].cpu()]
+            outs.append(res)
+        worst[case[4]] = scaled_error(outs[0], outs[1])
+    return worst
+
+
+def time_fint_matvec(sp, seed):
+    """K1, its plain version and torch.bmm (float32 in full precision)
+    on one step's product at a problem's shapes."""
+    import numpy as np
+    import torch
+
+    from savtpu_torch.ops.dense_step import (
+        batched_fint_matvec,
+        batched_fint_matvec_plain,
+    )
+
+    K = sp.denseK
+    rng = np.random.default_rng(seed)
+    d = torch.as_tensor(1e-3 * rng.standard_normal((sp.n_parts, sp.DL)),
+                        dtype=sp.dtype).to(sp.device) * sp.dof_mask
+    k, p, runs = in_turns(lambda: batched_fint_matvec_plain(K, d),
+                          lambda: batched_fint_matvec(K, d), 5, 100)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmul is on: torch.bmm would not be "
+                           "float32")
+    lib = event_ms(lambda: torch.bmm(K, d[:, :, None]), 100)
+    P, DL = d.shape
+    it = d.element_size()
+    b, by = bound_ms(it * (P * DL * DL + 2 * P * DL), 2 * P * DL * DL)
+    return dict(P=P, DL=DL, ms=k, plain_ms=p, plain_ms_runs=runs,
+                library_ms=lib, bound_ms=b, bound_by=by)
+
+
+def time_scan(sp, steps):
+    """K2 and its plain version on the sweep's call: ``steps`` comm-free
+    steps from a zero state, no predictions, no recording."""
+    import torch
+
+    from savtpu_torch.ops.dense_step import (
+        scan_comm_free,
+        scan_comm_free_plain,
+    )
+
+    d0 = torch.zeros((sp.n_parts, sp.DL), dtype=sp.dtype, device=sp.device)
+    args = (sp.denseK, d0, d0, 0.0, sp.F_pre, sp.lM, sp.bc_mask, sp.sld,
+            sp.smask, None)
+    kw = dict(num_steps=steps, dt=sp.dt, alpha=sp.alpha, ramped=sp.ramped,
+              record_shared=False)
+    k, p, runs = in_turns(lambda: scan_comm_free_plain(*args, **kw),
+                          lambda: scan_comm_free(*args, **kw), 1, 2)
+    P, DL = d0.shape
+    it = d0.element_size()
+    b, by = bound_ms(it * (P * DL * DL + 7 * P * DL) + 4 * P * DL,
+                     steps * P * (2 * DL * DL + 15 * DL))
+    return dict(P=P, DL=DL, steps=steps, ms=k, plain_ms=p,
+                plain_ms_runs=runs, bound_ms=b, bound_by=by)
+
+
+def time_banded_scan(sp, steps):
+    """K4 and its plain version on the sweep's call: ``steps`` comm-free
+    steps from a zero state."""
+    import torch
+
+    from savtpu_torch.ops.banded_scan import (
+        scan_comm_free_banded,
+        scan_comm_free_banded_plain,
+    )
+
+    d0 = torch.zeros((sp.n_parts, sp.DL), dtype=sp.dtype, device=sp.device)
+    args = (sp.band_Kd, sp.band_Kl, d0, d0, 0.0, sp.F_pre, sp.lM,
+            sp.bc_mask)
+    kw = dict(num_steps=steps, dt=sp.dt, alpha=sp.alpha, ramped=sp.ramped)
+    k, p, runs = in_turns(lambda: scan_comm_free_banded_plain(*args, **kw),
+                          lambda: scan_comm_free_banded(*args, **kw), 1, 2)
+    P, nc, Bk, _ = sp.band_Kd.shape
+    DLB = nc * Bk
+    it = d0.element_size()
+    b, by = bound_ms(it * (2 * P * nc * Bk * Bk + 7 * P * DLB),
+                     steps * P * (2 * (3 * nc - 2) * Bk * Bk + 15 * DLB))
+    return dict(P=P, nc=nc, Bk=Bk, steps=steps, ms=k, plain_ms=p,
+                plain_ms_runs=runs, bound_ms=b, bound_by=by)
+
+
 def stepper_profile(sp, dev, steps):
     """Wall and device time per step of the exchanged (stage-1) stepper at
     the slice's shapes, from torch.profiler: the device's busy share and
@@ -360,16 +751,17 @@ def main(argv=None) -> int:
 
     clock = Clock()
     dev = torch.device("cuda")
-    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    clock.phase(0, "device", kind=name, count=count, nvidia_smi=smi,
+    clock.phase(0, "device", kind=kind, count=count, nvidia_smi=smi,
                 torch=torch.__version__, cuda=torch.version.cuda)
 
-    built = kernels.build_all(["online_banded"])
+    built = kernels.build_all(["online_banded", "dense_step",
+                               "banded_scan"])
     ptxas = [ln.strip() for b in built.values() for ln in b.log.splitlines()
              if any(k in ln for k in ("registers", "spill", "smem",
                                       "stack frame"))]
@@ -395,6 +787,33 @@ def main(argv=None) -> int:
         if k3["failures"]:
             raise RuntimeError(f"online_banded: {k3['failures']}")
         max_abs_err = k3["max_abs_err"]
+
+        # K1, K2 and K4 at the shapes of the sweep cases that run them
+        from savtpu_torch.benchmarks.sweep import build_case
+
+        sweep_sp = {key: build_case(*case[:5], device=dev)[1]
+                    for key, case in zip(SWEEP_PATH, sweep_path_cases())}
+        sp48, sp96, sp96b = (sweep_sp[k] for k in SWEEP_PATH)
+        checks = {}
+        for tag, sp_k in (("48x4x4_p8", sp48), ("96x8x8_p8", sp96)):
+            rng = np.random.default_rng(SEED)
+            d = torch.as_tensor(
+                1e-3 * rng.standard_normal((sp_k.n_parts, sp_k.DL)),
+                dtype=sp_k.dtype).to(dev) * sp_k.dof_mask
+            checks[f"fint_matvec_{tag}"] = check_fint_matvec(sp_k.denseK, d)
+        checks["scan_comm_free_48x4x4_p8"] = check_scan_comm_free(
+            sp48, 1000, SEED)
+        checks["scan_comm_free_96x8x8_p8"] = check_scan_comm_free(
+            sp96, 200, SEED)
+        checks["scan_comm_free_banded_96x8x8_p16"] = check_banded_scan(
+            sp96b, 1000, SEED)
+        torch.cuda.synchronize()
+        for check, res in checks.items():
+            clock.phase(2, f"{check}_vs_plain", **res)
+        failures = {n: r["failures"] for n, r in checks.items()
+                    if r["failures"]}
+        if failures:
+            raise RuntimeError(f"kernel checks failed: {failures}")
 
         # ---- phase 3: the slice through the user's entry points ----
         cfg = slice_config(tmp / "slice", steps, opts.dtype)
@@ -484,31 +903,40 @@ def main(argv=None) -> int:
         if not small_err <= small_rtol:
             raise RuntimeError(f"small run: GPU vs CPU {small_err:.3e}")
 
+        # the sweep's cases on K1, K2 and K4, through bench_case
+        sweep_rows, sweep_launches = run_sweep_path(dev)
+        for row in sweep_rows:
+            clock.phase(3, f"sweep_{row['mesh']}_p{row['n_parts']}_"
+                        f"{row['fint_mode']}", **row)
+        small = small_sweep_gpu_vs_cpu(dev)
+        clock.phase(3, "small_sweep_gpu_vs_cpu", max_rel=small, rtol=1e-12)
+        if not max(small.values()) <= 1e-12:
+            raise RuntimeError(f"small sweep: GPU vs CPU {small}")
+
         # ---- phase 4: timing ----
         bound_ms, bound_by, nbytes, flops = k3_bound(args, Tc, SAVE_EVERY)
         torch.cuda.reset_peak_memory_stats()
 
-        def timed(fn, reps):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            for _ in range(reps):
-                fn(*args, **kw)
-            ev1.record()
-            torch.cuda.synchronize()
-            return ev0.elapsed_time(ev1) / reps
-
-        saved = online_chunk.launches
-        online_chunk(*args, **kw)  # warm-up
-        plain_a = timed(online_chunk_plain, 1)
-        kern = timed(online_chunk, 5)
-        plain_b = timed(online_chunk_plain, 1)
-        online_chunk.launches = saved
-        plain_ms = 0.5 * (plain_a + plain_b)
+        kern, plain_ms, plain_runs = in_turns(
+            lambda: online_chunk_plain(*args, **kw),
+            lambda: online_chunk(*args, **kw), 1, 5)
         clock.phase(4, "online_banded_timing", ms=kern, plain_ms=plain_ms,
-                    plain_ms_runs=[plain_a, plain_b], bound_ms=bound_ms,
+                    plain_ms_runs=plain_runs, bound_ms=bound_ms,
                     bound_by=bound_by, bytes=nbytes, flops=flops,
                     max_memory_allocated=torch.cuda.max_memory_allocated())
+        steps_of = {k: c[5] for k, c in zip(SWEEP_PATH, sweep_path_cases())}
+        timing = {
+            "fint_matvec_48x4x4_p8": time_fint_matvec(sp48, SEED),
+            "fint_matvec_96x8x8_p8": time_fint_matvec(sp96, SEED),
+            "scan_comm_free_48x4x4_p8": time_scan(
+                sp48, steps_of[SWEEP_PATH[0]]),
+            "scan_comm_free_96x8x8_p8": time_scan(
+                sp96, steps_of[SWEEP_PATH[1]]),
+            "scan_comm_free_banded_96x8x8_p16": time_banded_scan(
+                sp96b, steps_of[SWEEP_PATH[2]]),
+        }
+        for what, res in timing.items():
+            clock.phase(4, f"{what}_timing", **res)
         clock.phase(4, "exchanged_stepper_profile",
                     **stepper_profile(ctx.sp, dev, steps=300))
     finally:
@@ -526,10 +954,30 @@ def main(argv=None) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": sweep_launches[name],
+        "max_abs_err": checks[f"{name}_{tag}"]["max_abs_err"],
+        "ms": timing[f"{name}_{tag}"]["ms"],
+        "plain_ms": timing[f"{name}_{tag}"]["plain_ms"],
+        "bound_ms": timing[f"{name}_{tag}"]["bound_ms"],
+        "bound_by": timing[f"{name}_{tag}"]["bound_by"],
+        "library_ms": timing[f"{name}_{tag}"].get("library_ms"),
+    } for name, source, replaces, tag in (
+        ("fint_matvec", "savtpu_torch/csrc/dense_step.cu",
+         "savtpu/ops/pallas_step.py:59", "96x8x8_p8"),
+        ("scan_comm_free", "savtpu_torch/csrc/dense_step.cu",
+         "savtpu/ops/pallas_step.py:97", "96x8x8_p8"),
+        ("scan_comm_free_banded", "savtpu_torch/csrc/banded_scan.cu",
+         "savtpu/ops/pallas_banded.py:55", "96x8x8_p16"),
+    )]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -48,17 +48,21 @@ def from_savtpu_arrays(
     ``sp_arrays`` maps field names of savtpu's ``ShardedProblem`` to
     values: the scalars n_parts, DL, SD, dt, alpha, ramped, fint_mode,
     compensated, the arrays local_dofs_global, dof_mask, bc_mask, lM,
-    F_pre, sld, sgi, smask, and denseK (dense mode) or band_Kd/band_Kl
-    (banded mode). ``models`` holds one (params, sidecar) pair per rank
-    of the expfit surrogate. Returns (ShardedProblem, [RankModel])."""
+    F_pre, sld, sgi, smask, and denseK (dense and pallas modes) or
+    band_Kd/band_Kl (banded mode); pallas arrays are moved from savtpu's
+    128-padded layout to the port's (:func:`_unpad_pallas`). ``models``
+    holds one (params, sidecar) pair per rank of the expfit surrogate.
+    Returns (ShardedProblem, [RankModel])."""
     missing = [k for k in _SCALARS + ("local_dofs_global",) + _INT_FIELDS
                if k not in sp_arrays]
     if missing:
         raise KeyError(f"savtpu ShardedProblem arrays lack {missing}")
-    if sp_arrays["fint_mode"] not in ("dense", "banded"):
+    if sp_arrays["fint_mode"] not in ("dense", "banded", "pallas"):
         raise NotImplementedError(
             f"fint_mode {sp_arrays['fint_mode']!r} is not ported yet"
         )
+    if sp_arrays["fint_mode"] == "pallas":
+        sp_arrays = _unpad_pallas(sp_arrays)
     dev = torch.device(device)
     dtype = dtype or torch.as_tensor(np.array(sp_arrays["lM"])).dtype
     kw = {k: sp_arrays[k] for k in _SCALARS}
@@ -88,6 +92,43 @@ def from_savtpu_arrays(
             int(meta["input_size"]), modal, dict(meta),
         ))
     return sp, rank_models
+
+
+def _unpad_pallas(sp_arrays: Dict) -> Dict:
+    """savtpu's pallas arrays in the port's pallas layout.
+
+    savtpu pads the local DOF axis of ``fint_mode="pallas"`` to a multiple
+    of 128 (``pad_dl``) and puts the dummy slot at the padded DL-1; the
+    slots from 3 L_max up to it are inert (mask 0, lM 1, K 0). The port
+    keeps the dense layout, DL = 3 L_max + 1 with the dummy at DL-1, so
+    the real slots are kept, the padded dummy becomes the new one and the
+    inert slots are dropped (after checking that they are inert)."""
+    DLp = int(sp_arrays["DL"])
+    n = np.asarray(sp_arrays["local_dofs_global"]).shape[1]
+    keep = np.concatenate([np.arange(n), [DLp - 1]])
+    out = dict(sp_arrays, DL=n + 1)
+    for k in ("dof_mask", "bc_mask", "lM", "F_pre"):
+        a = np.asarray(sp_arrays[k])
+        if a.shape[1] != DLp:
+            raise ValueError(f"{k} has {a.shape[1]} slots, DL is {DLp}")
+        pad = a[:, n : DLp - 1]
+        inert = 1.0 if k == "lM" else 0.0
+        if pad.size and not (pad == inert).all():
+            raise ValueError(f"savtpu's pallas pad slots of {k} are not "
+                             f"inert ({inert})")
+        out[k] = a[:, keep]
+    K = np.asarray(sp_arrays["denseK"])
+    if K[:, n:, :].any() or K[:, :, n:].any():
+        raise ValueError("savtpu's pallas K is not zero on its pad slots")
+    out["denseK"] = K[:, keep][:, :, keep]
+    sld = np.array(sp_arrays["sld"], dtype=np.int64)
+    real = np.asarray(sp_arrays["smask"]) > 0
+    if (sld[real] >= n).any():
+        raise ValueError("a valid shared slot of savtpu's pallas sld lies "
+                         "past the real DOFs")
+    sld[~real] = n  # the port's dummy slot
+    out["sld"] = sld
+    return out
 
 
 def _trajectory(path: Path, read_h5: Optional[Callable]) -> np.ndarray:

@@ -16,9 +16,10 @@
 // 3.7 MB at nc=7, Bk=256, float32) are far above the 227 KB a block may
 // hold, so every step re-reads them from global memory, and all parts'
 // band (58.7 MB at 16 parts) is just over the 50 MB L2. Only P of the 132
-// SMs are busy (16 at the 16-part slice). The band is read coalesced: the
-// row products Kd_c x_c + Kl_c x_{c-1} with one warp per row, the
-// transposed term Kl_{c+1}^T x_{c+1} with one thread per column.
+// SMs are busy (16 at the 16-part slice). The band matvec (common.cuh,
+// shared with the banded scan) reads the band coalesced: the row products
+// Kd_c x_c + Kl_c x_{c-1} with one warp per row, the transposed term
+// Kl_{c+1}^T x_{c+1} with one thread per column.
 //
 // Rounding: built with -fmad=false, and the update and the TwoSum use
 // explicitly rounded intrinsics, so they round exactly like the plain
@@ -28,30 +29,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using savtpu::Rn;
+using savtpu::warp_sum;
 
 constexpr int NT = 1024;         // threads per block
 constexpr int NW = NT / 32;      // warps per block
-
-template <typename T> struct Rn;
-template <> struct Rn<float> {
-  __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
-  __device__ static float sub(float a, float b) { return __fsub_rn(a, b); }
-  __device__ static float mul(float a, float b) { return __fmul_rn(a, b); }
-  __device__ static float div(float a, float b) { return __fdiv_rn(a, b); }
-};
-template <> struct Rn<double> {
-  __device__ static double add(double a, double b) { return __dadd_rn(a, b); }
-  __device__ static double sub(double a, double b) { return __dsub_rn(a, b); }
-  __device__ static double mul(double a, double b) { return __dmul_rn(a, b); }
-  __device__ static double div(double a, double b) { return __ddiv_rn(a, b); }
-};
-
-template <typename T>
-__device__ T warp_sum(T a) {
-  for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
-  return a;
-}
 
 // Sum three per-thread values over the block; every thread gets the sums.
 template <typename T>
@@ -87,7 +73,7 @@ __global__ void __launch_bounds__(NT) online_banded_kernel(
   using R = Rn<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int p = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int DLB = nc * Bk;
   const int n_rec = Tc / save_every;
 
@@ -150,36 +136,8 @@ __global__ void __launch_bounds__(NT) online_banded_kernel(
     }
     __syncthreads();
 
-    // row products: y_i = Kd_c[r, :] . x_c + Kl_c[r, :] . x_{c-1}
-    for (int i = warp; i < DLB; i += NW) {
-      const int c = i / Bk, r = i - c * Bk;
-      const T* kd = Kd_p + ((size_t)c * Bk + r) * Bk;
-      const T* xc = x + c * Bk;
-      T acc = 0;
-#pragma unroll 4
-      for (int k = lane; k < Bk; k += 32) acc += kd[k] * xc[k];
-      if (c > 0) {
-        const T* kl = Kl_p + ((size_t)c * Bk + r) * Bk;
-        const T* xm = x + (c - 1) * Bk;
-#pragma unroll 4
-        for (int k = lane; k < Bk; k += 32) acc += kl[k] * xm[k];
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) y[i] = acc;
-    }
-    __syncthreads();
-
-    // transposed term: y_c[r] += sum_k Kl_{c+1}[k, r] x_{c+1}[k]
-    for (int j = tid; j < (nc - 1) * Bk; j += NT) {
-      const int c = j / Bk, r = j - c * Bk;
-      const T* kl = Kl_p + (size_t)(c + 1) * Bk * Bk + r;
-      const T* xp = x + (c + 1) * Bk;
-      T acc = 0;
-#pragma unroll 8
-      for (int k = 0; k < Bk; ++k) acc += kl[(size_t)k * Bk] * xp[k];
-      y[j] += acc;
-    }
-    __syncthreads();
+    // y = Kd_c x_c + Kl_c x_{c-1} + Kl_{c+1}^T x_{c+1} (common.cuh)
+    savtpu::band_matvec<T, NT>(Kd_p, Kl_p, x, y, nc, Bk);
 
     // increment, shared-slot overwrite, TwoSum, recording
     const T tn = R::add(t0, R::mul(dt, R::add(i0, T(t))));

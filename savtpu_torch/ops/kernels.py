@@ -2,9 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` on its own into ``_build/<name>-<hash>.so`` (the hash covers the
-source and the flags), then loaded with ``ctypes``. Nothing here includes
-PyTorch's headers, so a build takes seconds. The library is built at first
-use; :func:`build_all` starts one ``nvcc`` per source, all at once.
+source, the shared headers ``csrc/*.cuh`` and the flags), then loaded
+with ``ctypes``. Nothing here includes PyTorch's headers, so a build takes
+seconds. The library is built at first use; :func:`build_all` starts one
+``nvcc`` per source, all at once. The helpers below are what every
+kernel wrapper shares: the C function with its argument types, the
+shared-slot map, the dtype suffix, the stream, and the checks of the
+tensors going in and of the error code coming out.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
@@ -29,6 +35,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# Shared memory one block may use on an H100 (sm_90, opt-in dynamic): the
+# size rule of the gates that send a run to a one-block-per-part kernel
+SMEM_PER_BLOCK = 232_448
 
 
 @dataclass
@@ -58,9 +68,13 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    """The library's path; its hash covers the source, every shared header
+    of ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -112,8 +126,60 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code."""
+def function(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, with its
+    argument types declared and an int (CUDA error code) result."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def slot_map(sld: torch.Tensor, smask: torch.Tensor, n: int) -> torch.Tensor:
+    """(P, n) int32 map from local DOF to shared slot: slot[p, j] = s where
+    sld[p, s] == j on a valid slot (smask > 0), else -1. The kernels
+    overwrite and record the shared slots through it."""
+    P, S3 = sld.shape
+    out = torch.full((P, n + 1), -1, dtype=torch.int32, device=sld.device)
+    tgt = torch.where(smask > 0, sld, torch.full_like(sld, n))
+    if int(tgt.max()) > n:
+        raise ValueError(f"a valid shared slot lies past the {n} local DOFs")
+    src = torch.arange(S3, dtype=torch.int32, device=sld.device)
+    out.scatter_(1, tgt, src.expand(P, S3))
+    return out[:, :n].contiguous()
+
+
+def suffix(dtype) -> str:
+    """The C symbol suffix of a kernel's ``dtype`` instance."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.float64:
+        return "f64"
+    raise TypeError(f"the kernels take float32 or float64, not {dtype}")
+
+
+def stream(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as a pointer."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_tensors(what: str, device, dtype, specs) -> None:
+    """Raise unless every (name, tensor, shape) of ``specs`` is a
+    contiguous tensor of that shape, ``dtype`` and ``device``."""
+    for name, t, shape in specs:
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be {dtype} on {device}")
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(
+                f"{what}: {name} must be contiguous {tuple(shape)}, got "
+                f"{tuple(t.shape)}"
+            )
+
+
+def check(name: str, err: int, what: str) -> None:
+    """Raise if a launch of ``csrc/<name>.cu``'s library returned a CUDA
+    error code."""
     if err != 0:
-        msg = lib.savtpu_error_string(err).decode()
+        msg = load(name).savtpu_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

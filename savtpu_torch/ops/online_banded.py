@@ -190,44 +190,28 @@ def online_chunk(Kd, Kl, hi, lo, v, Fp, lM, bc, dm, sld, smask, preds, *,
     if Tc % save_every:
         raise ValueError("online_chunk: Tc must be a multiple of save_every")
     vecs = (hi, lo, v, Fp, lM, bc, dm)
-    for name, t, shape in (
+    kernels.check_tensors(
+        "online_chunk", dev, dtype,
         [("Kd", Kd, (P, nc, Bk, Bk)), ("Kl", Kl, (P, nc, Bk, Bk)),
          ("preds", preds, (P, Tc, S3)), ("smask", smask, (P, S3))]
-        + [(f"vec{j}", t, (P, DLB)) for j, t in enumerate(vecs)]
-    ):
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"online_chunk: {name} must be {dtype} on {dev}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"online_chunk: {name} must be contiguous {shape}, got "
-                f"{tuple(t.shape)}"
-            )
+        + [(f"vec{j}", t, (P, DLB)) for j, t in enumerate(vecs)])
     if sld.shape != (P, S3) or sld.device != dev:
         raise ValueError("online_chunk: sld must be (P, S3) on the device")
-    # slot map: slot[p, j] = s where sld[p, s] == j on a valid slot, else -1
-    slot_ext = torch.full((P, DLB + 1), -1, dtype=torch.int32, device=dev)
-    tgt = torch.where(smask > 0, sld, torch.full_like(sld, DLB))
-    if int(tgt.max()) > DLB:
-        raise ValueError("online_chunk: a valid shared slot lies past DLB")
-    src = torch.arange(S3, dtype=torch.int32, device=dev).expand(P, S3)
-    slot_ext.scatter_(1, tgt, src)
-    slot = slot_ext[:, :DLB].contiguous()
+    slot = kernels.slot_map(sld, smask, DLB)
 
     outs = [torch.empty((P, DLB), dtype=dtype, device=dev) for _ in range(3)]
     shared = torch.zeros((P, Tc, S3), dtype=dtype, device=dev)
     traj = torch.empty((P, Tc // save_every, DLB), dtype=dtype, device=dev)
-    lib = kernels.load("online_banded")
-    fn = (lib.savtpu_online_banded_f32 if dtype == torch.float32
-          else lib.savtpu_online_banded_f64)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = kernels.function(
+        "online_banded",
+        "savtpu_online_banded_f32" if dtype == torch.float32
+        else "savtpu_online_banded_f64", _ARGTYPES)
     c1, c2 = _coeffs(dt, alpha)
     ptrs = [t.data_ptr() for t in (Kd, Kl, *vecs, slot, preds, *outs,
                                    shared, traj)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*ptrs, stream, P, nc, Bk, S3, Tc, save_every,
+    err = fn(*ptrs, kernels.stream(dev), P, nc, Bk, S3, Tc, save_every,
              1 if ramped else 0, float(t0), float(i0), float(dt), c1, c2)
-    kernels.check(lib, err, "online_banded launch")
+    kernels.check("online_banded", err, "online_banded launch")
     online_chunk.launches += 1
     return outs[0], outs[1], outs[2], shared, traj
 

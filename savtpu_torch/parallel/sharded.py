@@ -7,15 +7,23 @@ interface-force contributions are summed per global shared DOF (exactly
 FEM interface assembly) and written back to every owner. Interior DOFs
 have a single owner and never move.
 
-Ported here: the ``dense`` and ``banded`` internal-force modes (``auto``
-picks dense up to DL = 1536 local DOFs, banded beyond), the psum exchange,
-the plain and compensated (double-word) steppers with prediction
-overwrite and in-loop ``save_every`` recording, and the comm-free online
-block, which in banded compensated mode runs as one hand-written kernel
-(``ops/online_banded.py``). The time loop is a Python loop over eager
-tensor ops; the JAX package's ``lax.scan``, ``shard_map`` device meshes,
-the other force modes and the permute/grid exchanges wait for later
-slices.
+Ported here: the ``dense``, ``banded`` and ``pallas`` internal-force
+modes (``auto`` picks dense up to DL = 1536 local DOFs, banded beyond),
+the psum exchange, the plain and compensated (double-word) steppers with
+prediction overwrite and in-loop ``save_every`` recording, and the
+comm-free online block, which in banded compensated mode runs as one
+hand-written kernel (``ops/online_banded.py``). The time loop is a Python
+loop over eager tensor ops; the JAX package's ``lax.scan``, ``shard_map``
+device meshes, the other force modes and the permute/grid exchanges wait
+for later slices.
+
+``pallas`` is dense local K whose products go through the port's
+hand-written kernels (``ops/dense_step.py``): K1 for each step's F_int,
+and K2 for a whole comm-free run when ``ShardedSolver.run``'s gate allows.
+Its layout is the dense one: the JAX package pads DL to a multiple of 128
+for the TPU's lanes, which a CUDA kernel does not need, so here DL stays
+3 L_max + 1. Banded comm-free runs without recording go to K4
+(``ops/banded_scan.py``) under the same kind of gate.
 
 Padding: per-part arrays are padded to the max part size; padded scatter
 targets point at a dummy DOF slot (index DL-1) that is zeroed every step.
@@ -30,9 +38,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import banded_scan, dense_step
+from ..ops.dense_step import batched_fint_matvec
 from ..ops.material import linear_ramp
 from ..ops.online_banded import band_matvec, online_chunk
 from .halo import PartitionMaps, local_cells_of, rcm_reorder_maps
+
+# the JAX package's internal-force modes, and those ported here
+FINT_MODES = frozenset(
+    {"auto", "dense", "banded", "ell", "ebe", "pallas", "nh", "stencil"})
+PORTED_FINT_MODES = frozenset({"auto", "dense", "banded", "pallas"})
 
 # run_streamed's chunk plan (the JAX package's): at most this many steps,
 # or this many bytes of recorded trajectory, per chunk
@@ -156,10 +171,15 @@ class ShardedProblem:
         a permutation of each part's shared-node set — fixing the shared
         CHANNEL order of sld/sgi/smask, so stage reruns stay compatible
         with traces and models already on disk."""
-        if fint_mode not in ("auto", "dense", "banded"):
+        if fint_mode not in FINT_MODES:
+            raise ValueError(
+                f"unknown fint_mode {fint_mode!r}; expected one of "
+                f"{sorted(FINT_MODES)}"
+            )
+        if fint_mode not in PORTED_FINT_MODES:
             raise NotImplementedError(
-                f"fint_mode {fint_mode!r} is not ported yet; use 'auto', "
-                "'dense' or 'banded'"
+                f"fint_mode {fint_mode!r} is not ported yet; use one of "
+                f"{sorted(PORTED_FINT_MODES)}"
             )
         if exchange_mode != "psum":
             raise NotImplementedError(
@@ -306,6 +326,9 @@ class ShardedProblem:
         """F_int = K_local d for every part, (P, DL) -> (P, DL)."""
         if self.fint_mode == "dense":
             return torch.bmm(self.denseK, d[:, :, None])[:, :, 0]
+        if self.fint_mode == "pallas":
+            # K1 (ops/dense_step.py), once per step
+            return batched_fint_matvec(self.denseK, d)
         # block-tridiagonal matvec on the RCM-ordered local DOFs
         P = d.shape[0]
         _, nc, Bk, _ = self.band_Kd.shape
@@ -585,9 +608,55 @@ class ShardedSolver:
     def __init__(self, sp: ShardedProblem):
         self.sp = sp
 
+    def _pallas_scan_ok(self, sync, record, save_every) -> bool:
+        """Gate of K2 (ops/dense_step.scan_comm_free), the JAX package's
+        conditions: comm-free, pallas, uncompensated, at most shared-row
+        recording, save_every 1. Its VMEM budget is not carried over; the
+        size rule here is the kernel's own: one part's state (six (DL,)
+        vectors and the slot map) must fit in a block's shared memory,
+        because one block steps each part. K itself need not fit."""
+        sp = self.sp
+        return (
+            not sync
+            and sp.fint_mode == "pallas"
+            and not sp.compensated
+            and record in ("none", "shared")
+            and save_every == 1
+            and dense_step.scan_fits(sp.DL, sp.dtype)
+        )
+
+    def _banded_scan_ok(self, sync, record, preds) -> bool:
+        """Gate of K4 (ops/banded_scan.scan_comm_free_banded), the JAX
+        package's conditions: comm-free, banded, uncompensated, no
+        recording, no predictions. Size rule: one part's state (six
+        (nc*Bk,) vectors) must fit in a block's shared memory; the band
+        streams from global memory."""
+        sp = self.sp
+        if (sync or preds is not None or sp.fint_mode != "banded"
+                or sp.compensated or record != "none"):
+            return False
+        _, nc, Bk, _ = sp.band_Kd.shape
+        return banded_scan.scan_fits(nc, Bk, sp.dtype)
+
     def run(self, d0, dn, t0, num_steps, *, sync=True, preds=None,
             record="all", save_every=1):
-        return self.sp.stacked_run(
+        sp = self.sp
+        if self._banded_scan_ok(sync, record, preds):
+            d0f, dnf, tf = banded_scan.scan_comm_free_banded(
+                sp.band_Kd, sp.band_Kl, d0, dn, t0, sp.F_pre, sp.lM,
+                sp.bc_mask, num_steps=num_steps, dt=sp.dt, alpha=sp.alpha,
+                ramped=sp.ramped,
+            )
+            return (None, None), (d0f, dnf, tf)
+        if self._pallas_scan_ok(sync, record, save_every):
+            d0f, dnf, tf, shared = dense_step.scan_comm_free(
+                sp.denseK, d0, dn, t0, sp.F_pre, sp.lM, sp.bc_mask, sp.sld,
+                sp.smask, None if preds is None else preds.to(d0.dtype),
+                num_steps=num_steps, dt=sp.dt, alpha=sp.alpha,
+                ramped=sp.ramped, record_shared=record == "shared",
+            )
+            return (None, shared), (d0f, dnf, tf)
+        return sp.stacked_run(
             d0, dn, t0, num_steps, sync=sync, preds=preds, record=record,
             save_every=save_every,
         )

@@ -1,7 +1,8 @@
-"""savtpu_torch and chip_smoke.py import, and the port's pipeline runs,
-with every package the card's machine lacks blocked: JAX, flax, optax,
-h5py, meshio, matplotlib, and savtpu itself. Runs in a subprocess whose
-import system refuses those names."""
+"""savtpu_torch and chip_smoke.py import, and the port's pipeline and
+its ``--quick`` sweep run on the CPU, with every package the card's
+machine lacks blocked: JAX, flax, optax, h5py, meshio, matplotlib, and
+savtpu itself. Runs in a subprocess whose import system refuses those
+names."""
 
 import subprocess
 import sys
@@ -65,6 +66,16 @@ SCRIPT = textwrap.dedent(
     metrics = run_all.run(cfg, verbose=False, device="cpu")
     assert metrics["global_rel_l2_nonshared"] == metrics[
         "global_rel_l2_nonshared"]
+
+    import json
+    from savtpu_torch.benchmarks import sweep
+
+    out = {workdir!r} + "/sweep.json"
+    assert sweep.main(["--quick", "--device", "cpu", "--out", out]) == 0
+    res = json.load(open(out))
+    assert [r["mesh"] for r in res["results"]] == ["25x1x1"], res
+    assert res["results"][0]["sync_avoiding_steps_per_sec"] > 0
+    assert [r["fint_mode"] for r in res["skipped"]] == ["ell"], res
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("IMPORTED", len(names))
