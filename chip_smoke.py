@@ -19,9 +19,12 @@ Phases, each reported with its seconds and the running total against a
    the band zeroed, within its tolerance with the band, and a control
    that drops the compensation, which the first check must reject; K1,
    K2 (with and without predictions, shared rows recorded) and K4 at the
-   shapes of the sweep cases that run them, K2 and K4 bit for bit with
-   the operator zeroed, each within its tolerance with the operator, and
-   each with a control that the same comparison must reject;
+   shapes of the sweep cases that run them, K2 also at 25x1x1/2 and in
+   every launch shape its plan can take (forced at 48x4x4/8 and 8x1x1/2),
+   K2 and K4 bit for bit with the operator zeroed, each within its
+   tolerance with the operator, and each with a control that the same
+   comparison must reject; then the graph-replayed stepper against the
+   eager loop, bit for bit, with a control that drops the load ramp;
 3. the paths: the slice, the five-stage pipeline (96x8x8 beam, 16 RCB
    parts, float32 compensated, banded, expfit modal-8 surrogate, 9,000
    steps) through ``api.Simulation(cfg).run_all``'s stages, with the K3
@@ -34,8 +37,13 @@ Phases, each reported with its seconds and the running total against a
    tiny sweep problems on the GPU held against the CPU;
 4. kernel timing with CUDA events: kernel, plain version, bound, the
    PyTorch call that computes the same function where there is one (K1:
-   torch.bmm), peak device memory; and a torch.profiler look at the
-   exchanged stepper (device busy share, longest kernels).
+   torch.bmm, both as device time from 100 calls replayed in one CUDA
+   graph, and as eager issue time), peak device memory; and a
+   torch.profiler look at the graph-replayed exchanged stepper (device
+   busy share, longest kernels).
+
+``--keep-traces DIR`` saves the slice's departing and median ranks'
+stage-2 traces for ``scripts/c2_refit_witness.py``.
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's, and before that a {"kernels": [...]} summary. Any failure
@@ -354,12 +362,13 @@ def scan_inputs(sp, steps, seed):
     return args, preds, kw
 
 
-def check_scan_comm_free(sp, steps, seed):
+def check_scan_comm_free(sp, steps, seed, plan=None):
     """K2 against its plain version, with and without predictions, the
-    shared rows recorded. rounding: K zeroed, kernel and plain version
-    equal bit for bit; with K, within SCAN_RTOL of the plain state's
-    scale. The control, the plain version with the overwrite dropped,
-    must fail the same comparison."""
+    shared rows recorded, launched as ``plan`` says (default: as
+    dense_step.scan_plan plans it). rounding: K zeroed, kernel and plain
+    version equal bit for bit; with K, within SCAN_RTOL of the plain
+    state's scale. The control, the plain version with the overwrite
+    dropped, must fail the same comparison."""
     import torch
 
     from savtpu_torch.ops.dense_step import (
@@ -374,10 +383,11 @@ def check_scan_comm_free(sp, steps, seed):
     zargs = (torch.zeros_like(args[0]), *args[1:])
     rounding, kernel, abs_err = 0.0, 0.0, 0.0
     for p in (None, preds):
-        a = scan_comm_free(*zargs, p, record_shared=True, **kw)
+        a = scan_comm_free(*zargs, p, record_shared=True, plan=plan, **kw)
         b = scan_comm_free_plain(*zargs, p, record_shared=True, **kw)
         rounding = max(rounding, worst_abs(a, b))
-        out_k = scan_comm_free(*args, p, record_shared=True, **kw)
+        out_k = scan_comm_free(*args, p, record_shared=True, plan=plan,
+                               **kw)
         ref = scan_comm_free_plain(*args, p, record_shared=True, **kw)
         if not all(bool(t.isfinite().all()) for t in out_k):
             raise RuntimeError("K2 output is not finite")
@@ -387,11 +397,17 @@ def check_scan_comm_free(sp, steps, seed):
     ctl = scan_comm_free_plain(*args, None, record_shared=True, **kw)
     res = {
         "rtol": rtol, "steps": steps,
+        "plan": None if plan is None else vars(plan),
         "rounding_kernel_max_abs": rounding,
         "kernel_max_rel": kernel,
         "control_max_rel": scaled_error(ctl, ref),
         "max_abs_err": abs_err,
     }
+    if sp.device.type == "cuda" and plan is None:
+        from savtpu_torch.ops.dense_step import scan_plan, sm_count
+
+        res["plan"] = vars(scan_plan(sp.n_parts, sp.DL, sp.dtype,
+                                     sm_count(sp.device)))
     res["failures"] = [msg for bad, msg in (
         (rounding != 0.0,
          "K2 rounds unlike its plain version with K zeroed"),
@@ -467,6 +483,96 @@ def check_banded_scan(sp, steps, seed):
          "the K4 check does not reject the no-super-diagonal control"),
     ) if bad]
     return res
+
+
+def stepper_inputs(sp, steps, seed=SEED):
+    """A seeded state near the ramp's start, seeded predictions, t0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    P, DL, S3 = sp.n_parts, sp.DL, sp.sld.shape[1]
+    T = lambda a: torch.as_tensor(a, dtype=sp.dtype).to(sp.device)  # noqa
+    d0 = T(1e-3 * rng.standard_normal((P, DL))) * sp.dof_mask
+    dn = d0 - T(1e-6 * rng.standard_normal((P, DL))) * sp.dof_mask
+    preds = T(1e-4 * rng.standard_normal((P, steps, S3))) * sp.smask[:, None]
+    return d0, dn, T(0.05), preds
+
+
+def check_graph_stepper(sps, steps=25, graph_steps=10):
+    """The graph-replayed stepper against the eager loop on the card, on
+    problems ``sps`` (plain and compensated): sync on and off, predictions
+    on and off, record all / shared / none, save_every 1 and 5, over two
+    full chunks and a remainder. Equal bit for bit: the same kernels run
+    in the same order. K1 counts one launch per step on both paths. The
+    control, the graph path on the problem with its load ramp dropped,
+    must fail the same comparison."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from savtpu_torch.ops.dense_step import batched_fint_matvec
+
+    def flat(out):
+        (traj, shared), carry = out
+        return [x for x in (traj, shared, *carry) if x is not None]
+
+    worst, cases, counts_ok = 0.0, 0, True
+    for sp in sps:
+        d0, dn, t0, preds = stepper_inputs(sp, steps)
+        for sync, use_preds, record, se in itertools.product(
+                (True, False), (False, True), ("all", "shared", "none"),
+                (1, 5)):
+            kw = dict(sync=sync, preds=preds if use_preds else None,
+                      record=record, save_every=se)
+            n0 = batched_fint_matvec.launches
+            a = flat(sp._stacked_run_eager(d0, dn, t0, steps, **kw))
+            n1 = batched_fint_matvec.launches
+            b = flat(sp._stacked_run_chunked(d0, dn, t0, steps,
+                                             graph_steps=graph_steps, **kw))
+            torch.cuda.synchronize()
+            n2 = batched_fint_matvec.launches
+            counts_ok &= (n1 - n0 == steps and n2 - n1 == steps)
+            worst = max(worst, worst_abs(a, b))
+            cases += 1
+    sp = sps[0]
+    d0, dn, t0, _ = stepper_inputs(sp, steps)
+    kw = dict(sync=True, preds=None, record="all", save_every=1)
+    ref = flat(sp._stacked_run_eager(d0, dn, t0, steps, **kw))
+    ctl_sp = dataclasses.replace(sp, ramped=not sp.ramped)
+    ctl = flat(ctl_sp._stacked_run_chunked(d0, dn, t0, steps,
+                                           graph_steps=graph_steps, **kw))
+    res = {"cases": cases, "steps": steps, "graph_steps": graph_steps,
+           "graph_vs_eager_max_abs": worst,
+           "control_max_abs": worst_abs(ctl, ref),
+           "k1_counts_per_step": counts_ok}
+    res["failures"] = [msg for bad, msg in (
+        (worst != 0.0, "the graph path differs from the eager loop"),
+        (res["control_max_abs"] == 0.0,
+         "the graph check does not see a dropped ramp"),
+        (not counts_ok, "K1 counts differ from one launch per step"),
+    ) if bad]
+    return res
+
+
+def graph_ms(fn, reps=100):
+    """Device time of one call of fn(), from ``reps`` calls captured in
+    one CUDA graph and replayed, in ms (no host issue time inside)."""
+    import torch
+
+    from savtpu_torch.ops.dense_step import batched_fint_matvec
+
+    fn()
+    torch.cuda.synchronize()
+    n = batched_fint_matvec.launches
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    batched_fint_matvec.launches = n   # a timing capture launches nothing
+    g.replay()
+    return event_ms(g.replay, 5) / reps
 
 
 def event_ms(fn, reps):
@@ -595,17 +701,23 @@ def time_fint_matvec(sp, seed):
     rng = np.random.default_rng(seed)
     d = torch.as_tensor(1e-3 * rng.standard_normal((sp.n_parts, sp.DL)),
                         dtype=sp.dtype).to(sp.device) * sp.dof_mask
-    k, p, runs = in_turns(lambda: batched_fint_matvec_plain(K, d),
-                          lambda: batched_fint_matvec(K, d), 5, 100)
+    k_eager, p, runs = in_turns(lambda: batched_fint_matvec_plain(K, d),
+                                lambda: batched_fint_matvec(K, d), 5, 100)
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmul is on: torch.bmm would not be "
                            "float32")
-    lib = event_ms(lambda: torch.bmm(K, d[:, :, None]), 100)
+    lib_eager = event_ms(lambda: torch.bmm(K, d[:, :, None]), 100)
+    # device time: 100 calls in one graph, in turns
+    k = graph_ms(lambda: batched_fint_matvec(K, d))
+    lib = graph_ms(lambda: torch.bmm(K, d[:, :, None]))
+    k2 = graph_ms(lambda: batched_fint_matvec(K, d))
     P, DL = d.shape
     it = d.element_size()
     b, by = bound_ms(it * (P * DL * DL + 2 * P * DL), 2 * P * DL * DL)
-    return dict(P=P, DL=DL, ms=k, plain_ms=p, plain_ms_runs=runs,
-                library_ms=lib, bound_ms=b, bound_by=by)
+    return dict(P=P, DL=DL, ms=min(k, k2), ms_runs=[k, k2], plain_ms=p,
+                plain_ms_runs=runs, library_ms=lib,
+                eager_ms=k_eager, library_eager_ms=lib_eager,
+                bound_ms=b, bound_by=by, bound_share=b / min(k, k2))
 
 
 def time_scan(sp, steps):
@@ -629,8 +741,12 @@ def time_scan(sp, steps):
     it = d0.element_size()
     b, by = bound_ms(it * (P * DL * DL + 7 * P * DL) + 4 * P * DL,
                      steps * P * (2 * DL * DL + 15 * DL))
+    # where K cannot stay on chip (beyond 50 MB of L2 and the SMs' shared
+    # memory), every step reads it again from HBM
+    reread = steps * P * DL * DL * it / PEAK_BYTES * 1e3
     return dict(P=P, DL=DL, steps=steps, ms=k, plain_ms=p,
-                plain_ms_runs=runs, bound_ms=b, bound_by=by)
+                plain_ms_runs=runs, bound_ms=b, bound_by=by,
+                bound_k_reread_ms=reread)
 
 
 def time_banded_scan(sp, steps):
@@ -660,13 +776,15 @@ def time_banded_scan(sp, steps):
 
 def stepper_profile(sp, dev, steps):
     """Wall and device time per step of the exchanged (stage-1) stepper at
-    the slice's shapes, from torch.profiler: the device's busy share and
-    its five longest kernels."""
+    the slice's shapes, replayed from its CUDA graphs, from
+    torch.profiler: the device's busy share and its five longest
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     d0 = torch.zeros((sp.n_parts, sp.DL), dtype=sp.dtype, device=dev)
-    sp.stacked_run(d0, d0, 0.0, 20, sync=True, record="traj")  # warm-up
+    # warm-up: captures the graph chunks the profiled run replays
+    sp.stacked_run(d0, d0, 0.0, steps, sync=True, record="traj")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -693,6 +811,30 @@ def stepper_profile(sp, dev, steps):
         "top_kernels_ms_per_step": {k[:60]: t * 1e-3 / steps
                                     for k, t in rows[:5]},
     }
+
+
+def keep_traces(out_dir, cfg, store, per_rank, dt):
+    """Save the stage-2 shared-DOF traces of the rank whose comm-free
+    rel-L2 departs most and of the median rank, with what stage 3 fits
+    them with, into ``out_dir/c2_traces_<dtype>_<steps>.npz``."""
+    import numpy as np
+
+    from savtpu_torch.io.artifacts import load_displacement
+
+    ranks = sorted(per_rank, key=per_rank.get)
+    pick = {"departing": ranks[-1], "median": ranks[len(ranks) // 2]}
+    sur = cfg.surrogate
+    out_dir.mkdir(parents=True, exist_ok=True)
+    np.savez(
+        out_dir / f"c2_traces_{cfg.solver.dtype}_{cfg.solver.num_steps}.npz",
+        **{f"trace_{k}": load_displacement(store.shared_dof_h5(r))
+           for k, r in pick.items()},
+        **{f"rank_{k}": r for k, r in pick.items()},
+        rel_l2_per_rank=np.array([per_rank[r] for r in sorted(per_rank)]),
+        dt=dt, save_every=cfg.solver.save_every,
+        expfit_ramp_s=float(sur.expfit_ramp_s or 0.0),
+        cut_off=sur.cut_off, modal_dim=sur.modal_dim,
+        expfit_order=sur.expfit_order)
 
 
 def run_stages(cfg, dev):
@@ -722,6 +864,10 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=STEPS,
                     help="slice depth in steps (a multiple of save_every, "
                          "50)")
+    ap.add_argument("--keep-traces", type=Path, default=None,
+                    help="a directory to save the stage-2 traces of the "
+                         "slice's departing and median ranks in (for a "
+                         "refit on another machine)")
     ap.add_argument("--dtype", choices=("float32", "float64"),
                     default="float32",
                     help="the slice's state dtype in phase 3 (the "
@@ -801,10 +947,29 @@ def main(argv=None) -> int:
                 1e-3 * rng.standard_normal((sp_k.n_parts, sp_k.DL)),
                 dtype=sp_k.dtype).to(dev) * sp_k.dof_mask
             checks[f"fint_matvec_{tag}"] = check_fint_matvec(sp_k.denseK, d)
+        # K2 as planned at the sweep's three pallas cases (one block per
+        # part with K resident; 16 blocks per part, resident; 16 per part,
+        # streamed), then every launch shape forced at 48x4x4/8 and at a
+        # tiny problem
+        from savtpu_torch.ops.dense_step import forced_plan
+
+        sp25 = build_case(25, 1, 1, 2, "pallas", device=dev)[1]
+        checks["scan_comm_free_25x1x1_p2"] = check_scan_comm_free(
+            sp25, 1000, SEED)
         checks["scan_comm_free_48x4x4_p8"] = check_scan_comm_free(
             sp48, 1000, SEED)
         checks["scan_comm_free_96x8x8_p8"] = check_scan_comm_free(
             sp96, 200, SEED)
+        sp8 = build_case(8, 1, 1, 2, "pallas", device=dev)[1]
+        for tag, sp_k, shapes in (
+                ("48x4x4_p8", sp48, ((12, True), (16, False), (1, False))),
+                ("8x1x1_p2", sp8, ((1, True), (3, True), (3, False)))):
+            for blocks, resident in shapes:
+                plan = forced_plan(sp_k.DL, sp_k.dtype, blocks, resident)
+                name = (f"scan_comm_free_{tag}_b{plan.blocks}_"
+                        f"{'resident' if resident else 'streamed'}")
+                checks[name] = check_scan_comm_free(sp_k, 300, SEED,
+                                                    plan=plan)
         checks["scan_comm_free_banded_96x8x8_p16"] = check_banded_scan(
             sp96b, 1000, SEED)
         torch.cuda.synchronize()
@@ -814,6 +979,16 @@ def main(argv=None) -> int:
                     if r["failures"]}
         if failures:
             raise RuntimeError(f"kernel checks failed: {failures}")
+
+        # the graph-replayed stepper against the eager loop (48x4x4/8
+        # pallas, plain and compensated)
+        sp48c = build_case(48, 4, 4, 8, "pallas", compensated=True,
+                           device=dev)[1]
+        graphs = check_graph_stepper([sp48, sp48c])
+        clock.phase(2, "graph_stepper_vs_eager", **graphs)
+        if graphs["failures"]:
+            raise RuntimeError(f"graph stepper: {graphs['failures']}")
+        del sp48c
 
         # ---- phase 3: the slice through the user's entry points ----
         cfg = slice_config(tmp / "slice", steps, opts.dtype)
@@ -866,6 +1041,9 @@ def main(argv=None) -> int:
             commfree_rel_l2_per_rank=per_rank,
             warmup_rows_max_rel_diff=warm_err,
         )
+        if opts.keep_traces:
+            keep_traces(opts.keep_traces, cfg, store, per_rank,
+                        events["stage1_solve"]["dt"])
         if launches < max(blocks, 2):
             raise RuntimeError(
                 f"online_banded launched {launches} times in the slice "

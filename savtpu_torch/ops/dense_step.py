@@ -5,12 +5,16 @@ Counterpart of ``savtpu/ops/pallas_step.py``:
 - K1, :func:`batched_fint_matvec`, replaces ``_matvec_kernel``
   (``pallas_step.py:59``): one step's F_int = K d for every part. The
   stepper calls it once per step (``ShardedProblem._fint_stacked``), in
-  the exchanged and the generic comm-free runs.
+  the exchanged and the generic comm-free runs; on the card those steps
+  replay from CUDA graphs (``parallel/sharded.py``).
 - K2, :func:`scan_comm_free`, replaces ``_scan_kernel``
   (``pallas_step.py:97``): the whole comm-free scan, uncompensated, with
   optional prediction overwrite of the shared slots and per-step
   recording of the shared rows. ``ShardedSolver.run`` sends a comm-free
-  run to it when its gate allows.
+  run to it when its gate allows. :func:`scan_plan` picks its launch: one
+  block per part with K in shared memory where a part's K fits there,
+  else the rows of each part split over several blocks, K resident in
+  their shared memory where the rows fit, streamed every step otherwise.
 
 Three pieces each, as for every kernel of the port: the plain PyTorch
 version (``*_plain``), which the CPU path and the tests use; the CUDA
@@ -31,6 +35,7 @@ the same.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -115,8 +120,79 @@ def scan_comm_free_plain(K, d0, dn, t0, F_pre, lM, bc, sld, smask, preds,
 def scan_fits(DL: int, dtype) -> bool:
     """Whether K2's per-part state (six (DL,) vectors and the slot map)
     fits in one block's shared memory: the gate's size rule."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return 6 * DL * itemsize + 4 * DL <= kernels.SMEM_PER_BLOCK
+    smem = _one_block_smem(DL, _itemsize(dtype), False)
+    return smem <= kernels.SMEM_PER_BLOCK
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """How K2 is launched: ``blocks`` blocks per part, each owning
+    ``rows`` consecutive rows (the last may own fewer), with K kept in
+    shared memory (``resident``) or streamed every step, and ``smem``
+    bytes of dynamic shared memory per block."""
+
+    blocks: int
+    rows: int
+    resident: bool
+    smem: int
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _one_block_smem(DL, it, resident) -> int:
+    # d0, dn, y, Fp, lM, bc, the slot map, and K if resident
+    return 6 * DL * it + 4 * DL + (DL * DL * it if resident else 0)
+
+
+def _split_smem(DL, rows, it, resident) -> int:
+    # K's rows (pitch padded to 16 bytes) if resident, the part's d (same
+    # padding); y, dn, Fp, lM, bc and the slot map of the block's rows
+    DLp = -(-DL * it // 16) * 16 // it
+    return ((rows * DLp * it if resident else 0) + DLp * it
+            + 5 * rows * it + 4 * rows)
+
+
+def forced_plan(DL: int, dtype, blocks: int, resident: bool) -> ScanPlan:
+    """The plan with ``blocks`` blocks per part (fewer if the rows run
+    out first) and the given residency; :func:`scan_plan` picks among
+    these."""
+    it = _itemsize(dtype)
+    if blocks == 1:
+        return ScanPlan(1, DL, resident, _one_block_smem(DL, it, resident))
+    rows = -(-DL // blocks)
+    blocks = -(-DL // rows)
+    return ScanPlan(blocks, rows, resident,
+                    _split_smem(DL, rows, it, resident))
+
+
+def scan_plan(P: int, DL: int, dtype, sm_count: int,
+              smem_per_block: int = kernels.SMEM_PER_BLOCK) -> ScanPlan:
+    """K2's launch for P parts of DL rows on a card with ``sm_count`` SMs:
+
+    - one block per part with K in shared memory, where one part's K fits
+      there beside the state;
+    - else B = sm_count // P blocks per part (P B <= sm_count, one block
+      per SM, all co-resident), K's rows kept in each block's shared
+      memory where they fit, streamed every step where they do not;
+    - one block per part, K streamed, where the parts leave no SM for a
+      second block each (B < 2)."""
+    one = forced_plan(DL, dtype, 1, True)
+    if one.smem <= smem_per_block:
+        return one
+    B = sm_count // P
+    if B < 2:
+        return forced_plan(DL, dtype, 1, False)
+    plan = forced_plan(DL, dtype, B, True)
+    if plan.smem <= smem_per_block:
+        return plan
+    return forced_plan(DL, dtype, B, False)
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def scaled_error(out_a, out_b) -> float:
@@ -134,8 +210,8 @@ def scaled_error(out_a, out_b) -> float:
 
 # K, d, out and the stream; P, DL
 _MATVEC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-# 11 tensor pointers and the stream; 7 ints; t0, dt, alpha
-_SCAN_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+# 13 tensor pointers and the stream; 11 ints; t0, dt, alpha
+_SCAN_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
                   + [ctypes.c_double] * 3)
 
 
@@ -166,10 +242,13 @@ batched_fint_matvec.launches = 0
 
 
 def scan_comm_free(K, d0, dn, t0, F_pre, lM, bc, sld, smask, preds, *,
-                   num_steps, dt, alpha, ramped, record_shared):
+                   num_steps, dt, alpha, ramped, record_shared, plan=None):
     """The whole comm-free scan (arguments and results as in
     :func:`scan_comm_free_plain`). CPU tensors run the plain version;
-    CUDA tensors launch K2 of ``csrc/dense_step.cu``."""
+    CUDA tensors launch K2 of ``csrc/dense_step.cu`` as :func:`scan_plan`
+    plans it. ``plan`` (a :class:`ScanPlan`, from :func:`forced_plan`)
+    overrides the plan, so that the checks can run every launch shape at
+    any size; the solver never passes it."""
     if d0.device.type == "cpu":
         return scan_comm_free_plain(
             K, d0, dn, t0, F_pre, lM, bc, sld, smask, preds,
@@ -201,19 +280,32 @@ def scan_comm_free(K, d0, dn, t0, F_pre, lM, bc, sld, smask, preds, *,
         raise ValueError(
             f"scan_comm_free: DL={DL} {dtype} state exceeds a block's "
             "shared memory")
+    n_sm = sm_count(dev)
+    if plan is None:
+        plan = scan_plan(P, DL, dtype, n_sm)
+    if plan.smem > kernels.SMEM_PER_BLOCK or (
+            plan.blocks > 1 and P * plan.blocks > n_sm):
+        raise ValueError(f"scan_comm_free: {plan} does not fit {P} parts "
+                         f"on {n_sm} SMs")
     slot = kernels.slot_map(sld, smask, DL)
     d0_out = torch.empty_like(d0)
     dn_out = torch.empty_like(d0)
     shared = (torch.zeros((P, num_steps, S3), dtype=dtype, device=dev)
               if record_shared else None)
+    split = plan.blocks > 1
+    # the split kernel's double-buffered d and its per-part arrival counts
+    buf = torch.empty((2, P, DL), dtype=dtype, device=dev) if split else None
+    ctr = torch.zeros(P, dtype=torch.int32, device=dev) if split else None
     fn = kernels.function("dense_step", f"savtpu_scan_comm_free_{sfx}",
                           _SCAN_ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = fn(ptr(K), ptr(d0), ptr(dn), ptr(F_pre), ptr(lM), ptr(bc),
              ptr(slot), ptr(preds), ptr(d0_out), ptr(dn_out), ptr(shared),
-             kernels.stream(dev), P, DL, S3, int(num_steps),
-             int(preds is not None), int(bool(record_shared)),
-             int(bool(ramped)), float(t0), float(dt), float(alpha))
+             ptr(buf), ptr(ctr), kernels.stream(dev), P, DL, S3,
+             int(num_steps), int(preds is not None),
+             int(bool(record_shared)), int(bool(ramped)), plan.blocks,
+             plan.rows, int(plan.resident), plan.smem, float(t0), float(dt),
+             float(alpha))
     kernels.check("dense_step", err, "scan_comm_free launch")
     scan_comm_free.launches += 1
     t0c, dtc = step_scalars(t0, dt, alpha, dtype, dev)[:2]
@@ -221,4 +313,3 @@ def scan_comm_free(K, d0, dn, t0, F_pre, lM, bc, sld, smask, preds, *,
 
 
 scan_comm_free.launches = 0
-

@@ -12,10 +12,13 @@ modes (``auto`` picks dense up to DL = 1536 local DOFs, banded beyond),
 the psum exchange, the plain and compensated (double-word) steppers with
 prediction overwrite and in-loop ``save_every`` recording, and the
 comm-free online block, which in banded compensated mode runs as one
-hand-written kernel (``ops/online_banded.py``). The time loop is a Python
-loop over eager tensor ops; the JAX package's ``lax.scan``, ``shard_map``
-device meshes, the other force modes and the permute/grid exchanges wait
-for later slices.
+hand-written kernel (``ops/online_banded.py``). The generic time loop is
+one step function (``ShardedProblem._step``) run two ways: on a CUDA
+device from captured CUDA graphs of up to ``GRAPH_STEPS`` steps each,
+replayed with no host work inside (the counterpart of the JAX package's
+jitted ``lax.scan``), and on the CPU as an eager Python loop. The JAX
+package's ``shard_map`` device meshes, the other force modes and the
+permute/grid exchanges wait for later slices.
 
 ``pallas`` is dense local K whose products go through the port's
 hand-written kernels (``ops/dense_step.py``): K1 for each step's F_int,
@@ -32,13 +35,15 @@ targets point at a dummy DOF slot (index DL-1) that is zeroed every step.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import weakref
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops import banded_scan, dense_step
+from ..ops import banded_scan, dense_step, kernels
 from ..ops.dense_step import batched_fint_matvec
 from ..ops.material import linear_ramp
 from ..ops.online_banded import band_matvec, online_chunk
@@ -53,6 +58,9 @@ PORTED_FINT_MODES = frozenset({"auto", "dense", "banded", "pallas"})
 # or this many bytes of recorded trajectory, per chunk
 MAX_CHUNK_STEPS = 25_000
 HOST_TRAJ_BUDGET_BYTES = 1 << 28
+
+# the stepper's CUDA graphs: at most this many steps per captured chunk
+GRAPH_STEPS = 100
 
 
 def _build_banded(npn, DLp, edofs, Ke, chunk_quantum=256):
@@ -145,6 +153,9 @@ class ShardedProblem:
     band_Kd: Optional[torch.Tensor] = None  # (P, nc, Bk, Bk) diagonal
     band_Kl: Optional[torch.Tensor] = None  # (P, nc, Bk, Bk) sub-diagonal;
                                             # super-diag = Kl[i+1]^T (sym)
+    # the stepper's cached graph chunks (_StepChunk), by flags and shapes
+    _graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -505,101 +516,307 @@ class ShardedProblem:
 
         The trajectory records d1 of every step i with i % save_every ==
         0, shape (P, num_steps // save_every, DL); the shared-DOF trace is
-        recorded at every step, shape (P, num_steps, 3*S_max)."""
+        recorded at every step, shape (P, num_steps, 3*S_max).
+
+        On a CUDA device the step loop replays from CUDA graphs
+        (:meth:`_stacked_run_chunked`); on the CPU it is the eager loop
+        (:meth:`_stacked_run_eager`). Both run the same step, so they give
+        the same bits."""
         if num_steps % save_every:
             raise ValueError(
                 f"num_steps ({num_steps}) must be divisible by "
                 f"save_every ({save_every})"
             )
-        dt = self.dt
-        dtype = d0.dtype
-        dev = d0.device
-        t0 = torch.as_tensor(t0, dtype=dtype).to(dev)
+        t0 = torch.as_tensor(t0, dtype=d0.dtype).to(d0.device)
 
         if self._online_ok(sync, preds, record, save_every, num_steps):
             return self._online_run(d0, dn, t0, num_steps, preds,
                                     save_every)
+        run = (self._stacked_run_chunked
+               if d0.device.type == "cuda" and num_steps > 0
+               else self._stacked_run_eager)
+        return run(d0, dn, t0, num_steps, sync=sync, preds=preds,
+                   record=record, save_every=save_every)
 
-        def synced_fint(d):
-            F_int = self._fint_stacked(d)
-            return self._exchange(F_int) if sync else F_int
+    # The step of the generic loop. Its state is (d, d_prev, t) for the
+    # plain stepper and (d_hi, d_lo, v, i) for the compensated one; each
+    # step returns the new state and the displacement it records.
+    def _init_state(self, d0, dn, t0):
+        if not self.compensated:
+            return (d0, dn, t0)
+        # Dirichlet slots are clamped once here; the per-step mask only
+        # touches the increment
+        d_hi = d0 * self.bc_mask
+        return (d_hi, torch.zeros_like(d0), d_hi - dn * self.bc_mask,
+                torch.zeros((), dtype=d0.dtype, device=d0.device))
 
+    def _step_constants(self, dtype, dev):
+        """The compensated step's scalars as tensors on the device (made
+        before a graph capture, which allows no host-to-device copy)."""
+        if not self.compensated:
+            return None
+        beta = 0.5 * float(self.alpha) * float(self.dt)
+        c1 = torch.tensor((1.0 - beta) / (1.0 + beta), dtype=dtype,
+                          device=dev)
+        c2 = torch.tensor(float(self.dt) ** 2 / (1.0 + beta), dtype=dtype,
+                          device=dev)
+        dtc = torch.tensor(self.dt, dtype=dtype, device=dev)
+        one = torch.ones((), dtype=dtype, device=dev)
+        return c1, c2, dtc, one
+
+    def _step(self, state, pred_row, sync, consts, t0):
+        F_of = self._fint_stacked
+        if not self.compensated:
+            d0c, dnc, tn = state
+            F_int = F_of(d0c)
+            if sync:
+                F_int = self._exchange(F_int)
+            d1 = self._update(d0c, dnc, tn, F_int)
+            if pred_row is not None:
+                d1 = self._scatter_pred(d1, pred_row)
+            return (d1, d0c, tn + self.dt), d1
+        # Compensated (double-word) integration. The update is recast in
+        # incremental form: with beta = alpha*dt/2 and v_n = d_n - d_{n-1},
+        #   d_{n+1} = d_n + [ (1-beta)*v_n + dt^2*(F_ext-F_int)/M ]
+        #             / (1+beta)
+        # (algebraically identical to _update). The increment delta is
+        # small relative to d, so it is accurate in f32; the state roll
+        # d + delta is an error-free TwoSum into an unevaluated (hi, lo)
+        # pair. v is carried as the applied increment.
+        c1, c2, dtc, one = consts
+        d_hi, d_lo, v, i = state
+        F_int = F_of(d_hi - self._translation_mean(d_hi))
+        if sync:
+            F_int = self._exchange(F_int)
+        # t from the step index (one rounding) instead of a running
+        # accumulation
+        tn = t0 + dtc * i
+        ramp = linear_ramp(tn) if self.ramped else one
+        delta = (
+            c1 * v + c2 * ((self.F_pre * ramp - F_int) / self.lM)
+        ) * self.bc_mask
+        if pred_row is not None:
+            # overwrite shared DOFs with the prediction: in incremental
+            # form the increment at a shared slot is pred - current
+            cur = (torch.gather(d_hi, 1, self.sld)
+                   + torch.gather(d_lo, 1, self.sld))
+            tgt = (pred_row - cur) * self.smask
+            delta = delta.scatter(1, self.sld, tgt)
+            delta[:, self.DL - 1] = 0.0
+        # TwoSum(d_hi, delta) + renormalize (Knuth/Dekker EFTs)
+        s = d_hi + delta
+        z = s - d_hi
+        e = (d_hi - (s - z)) + (delta - z)
+        lo = d_lo + e
+        d_hi = s + lo
+        d_lo = lo - (d_hi - s)
+        return (d_hi, d_lo, delta, i + one), d_hi
+
+    def _carry(self, state, t0, consts):
+        if not self.compensated:
+            return state
+        d_hi, d_lo, v, i = state
+        d1 = d_hi + d_lo
+        return (d1, d1 - v, t0 + consts[2] * i)
+
+    def _steps(self, state, num_steps, preds, sync, consts, t0, *,
+               want_traj, want_shared, save_every):
+        """``num_steps`` steps from ``state``; returns the new state, the
+        trajectory rows (every save_every-th step) and the shared rows
+        (every step), stacked, or None where not wanted."""
+        traj, shared = [], []
+        for k in range(num_steps):
+            state, rec = self._step(
+                state, None if preds is None else preds[:, k, :], sync,
+                consts, t0)
+            if want_traj and k % save_every == 0:
+                traj.append(rec)
+            if want_shared:
+                shared.append(self._gather_shared(rec))
+        return (state,
+                torch.stack(traj, dim=1) if want_traj else None,
+                torch.stack(shared, dim=1) if want_shared else None)
+
+    def _stacked_run_eager(self, d0, dn, t0, num_steps, *, sync, preds,
+                           record, save_every):
+        """The step loop as eager tensor ops: the CPU path, and on the card
+        the reference the graph path is held against."""
+        consts = self._step_constants(d0.dtype, d0.device)
+        state, traj, shared = self._steps(
+            self._init_state(d0, dn, t0), num_steps, preds, sync, consts,
+            t0, want_traj=record in ("all", "traj"),
+            want_shared=record in ("all", "shared"), save_every=save_every)
+        return (traj, shared), self._carry(state, t0, consts)
+
+    def _stacked_run_chunked(self, d0, dn, t0, num_steps, *, sync, preds,
+                             record, save_every, graph_steps=None):
+        """The step loop in chunks of G steps (:func:`graph_chunks`), each
+        a :class:`_StepChunk` whose static buffers carry the state, t0 and
+        the chunk's predictions in and its recordings out. On a CUDA device
+        every chunk is a captured CUDA graph, cached on the problem by the
+        run's flags, its length and its shapes, and replayed; on the CPU
+        (the tests) the chunk's body runs directly. If a capture fails the
+        run raises."""
+        G, n_full, rem = graph_chunks(num_steps, save_every,
+                                      graph_steps or GRAPH_STEPS)
+        P, DL, S3 = d0.shape[0], self.DL, self.sld.shape[1]
+        dtype, dev = d0.dtype, d0.device
         want_traj = record in ("all", "traj")
         want_shared = record in ("all", "shared")
-        traj, shared = [], []
+        traj = (torch.empty((P, num_steps // save_every, DL), dtype=dtype,
+                            device=dev) if want_traj else None)
+        shared = (torch.empty((P, num_steps, S3), dtype=dtype, device=dev)
+                  if want_shared else None)
+        state = self._init_state(d0, dn, t0)
+        done = 0
+        for n in [G] * n_full + ([rem] if rem else []):
+            chunk = self._chunk(n, state, t0, sync=sync,
+                                has_preds=preds is not None,
+                                want_traj=want_traj, want_shared=want_shared,
+                                save_every=save_every)
+            state = chunk.run(state, t0, None if preds is None
+                              else preds[:, done : done + n])
+            if want_traj:
+                traj[:, done // save_every : (done + n) // save_every] = (
+                    chunk.traj)
+            if want_shared:
+                shared[:, done : done + n] = chunk.shared
+            done += n
+        state = tuple(s.clone() for s in state)
+        consts = self._step_constants(dtype, dev)
+        return (traj, shared), self._carry(state, t0, consts)
 
-        if not self.compensated:
-            d0c, dnc, tn = d0, dn, t0
-            for i in range(num_steps):
-                d1 = self._update(d0c, dnc, tn, synced_fint(d0c))
-                if preds is not None:
-                    d1 = self._scatter_pred(d1, preds[:, i, :])
-                d0c, dnc, tn = d1, d0c, tn + dt
-                if want_traj and i % save_every == 0:
-                    traj.append(d1)
-                if want_shared:
-                    shared.append(self._gather_shared(d1))
-            carry = (d0c, dnc, tn)
-        else:
-            # Compensated (double-word) integration. The update is recast
-            # in incremental form: with beta = alpha*dt/2 and
-            # v_n = d_n - d_{n-1},
-            #   d_{n+1} = d_n + [ (1-beta)*v_n + dt^2*(F_ext-F_int)/M ]
-            #             / (1+beta)
-            # (algebraically identical to _update). The increment delta is
-            # small relative to d, so it is accurate in f32; the state roll
-            # d + delta is an error-free TwoSum into an unevaluated
-            # (hi, lo) pair. v is carried as the applied increment.
-            beta = 0.5 * float(self.alpha) * float(dt)
-            c1 = torch.tensor((1.0 - beta) / (1.0 + beta), dtype=dtype,
-                              device=dev)
-            c2 = torch.tensor(float(dt) ** 2 / (1.0 + beta), dtype=dtype,
-                              device=dev)
-            dtc = torch.tensor(dt, dtype=dtype, device=dev)
-            one = torch.ones((), dtype=dtype, device=dev)
-            # Dirichlet slots are clamped once here; the per-step mask
-            # only touches the increment
-            d_hi = d0 * self.bc_mask
-            d_lo = torch.zeros_like(d0)
-            v = d_hi - dn * self.bc_mask
-            i = torch.zeros((), dtype=dtype, device=dev)
-            for k in range(num_steps):
-                F_int = synced_fint(d_hi - self._translation_mean(d_hi))
-                # t from the step index (one rounding) instead of a
-                # running accumulation
-                tn = t0 + dtc * i
-                ramp = linear_ramp(tn) if self.ramped else one
-                delta = (
-                    c1 * v + c2 * ((self.F_pre * ramp - F_int) / self.lM)
-                ) * self.bc_mask
-                if preds is not None:
-                    # overwrite shared DOFs with the prediction: in
-                    # incremental form the increment at a shared slot is
-                    # pred - current
-                    cur = (torch.gather(d_hi, 1, self.sld)
-                           + torch.gather(d_lo, 1, self.sld))
-                    tgt = (preds[:, k, :] - cur) * self.smask
-                    delta = delta.scatter(1, self.sld, tgt)
-                    delta[:, self.DL - 1] = 0.0
-                # TwoSum(d_hi, delta) + renormalize (Knuth/Dekker EFTs)
-                s = d_hi + delta
-                z = s - d_hi
-                e = (d_hi - (s - z)) + (delta - z)
-                lo = d_lo + e
-                d_hi = s + lo
-                d_lo = lo - (d_hi - s)
-                v = delta
-                i = i + one
-                if want_traj and k % save_every == 0:
-                    traj.append(d_hi)
-                if want_shared:
-                    shared.append(self._gather_shared(d_hi))
-            d1 = d_hi + d_lo
-            carry = (d1, d1 - v, t0 + dtc * i)
+    def _chunk(self, n, state, t0, **flags):
+        """The cached :class:`_StepChunk` of ``n`` steps for these flags,
+        shapes and problem tensors (made on first use)."""
+        tensors = (self.denseK, self.band_Kd, self.band_Kl, self.F_pre,
+                   self.lM, self.bc_mask, self.dof_mask, self.sld, self.sgi,
+                   self.smask, self.owners)
+        key = (n, tuple(sorted(flags.items())), self.compensated,
+               self.fint_mode, self.dt, self.alpha, self.ramped,
+               t0.dtype, str(t0.device),
+               tuple(tuple(s.shape) for s in state),
+               tuple(None if t is None else t.data_ptr() for t in tensors))
+        chunk = self._graphs.get(key)
+        if chunk is None:
+            chunk = _StepChunk(self, n, state, t0, **flags)
+            self._graphs[key] = chunk
+        return chunk
 
-        traj_t = torch.stack(traj, dim=1) if want_traj else None
-        shared_t = torch.stack(shared, dim=1) if want_shared else None
-        return (traj_t, shared_t), carry
+
+# the kernel wrappers a step may launch: their counts add the captured
+# launches at every replay
+COUNTED_KERNELS = (batched_fint_matvec,)
+
+
+class _StepChunk:
+    """``n`` steps of ``ShardedProblem._step`` on static buffers: the state
+    and t0 in (copied back in place at the chunk's end, so the next run
+    continues from it), the chunk's prediction rows in, its trajectory
+    rows and shared rows out.
+
+    On a CUDA device the body is captured once into a CUDA graph and
+    every :meth:`run` replays it; the kernel wrappers' counts (which the
+    capture moved without launching anything) are restored, and each
+    replay adds the launches it captured. A port kernel must have its
+    library loaded before the capture (``nvcc`` and ``ctypes`` cannot run
+    inside one); cuBLAS (dense and banded products) is set up by one eager
+    step on the capture stream, which launches no counted kernel."""
+
+    def __init__(self, sp, n, state, t0, *, sync, has_preds, want_traj,
+                 want_shared, save_every):
+        # a weak reference: the problem caches its chunks, and a cycle
+        # would leave a dead problem's graphs to the cyclic collector,
+        # which may run (and destroy a graph) during another capture
+        self._sp = weakref.ref(sp)
+        self.n, self.sync, self.save_every = n, sync, save_every
+        self.want_traj, self.want_shared = want_traj, want_shared
+        self.state = tuple(s.clone() for s in state)
+        self.t0 = t0.clone()
+        dtype, dev = t0.dtype, t0.device
+        P, S3 = self.state[0].shape[0], sp.sld.shape[1]
+        self.preds = (torch.zeros((P, n, S3), dtype=dtype, device=dev)
+                      if has_preds else None)
+        self.consts = sp._step_constants(dtype, dev)
+        self.traj = self.shared = None
+        self.graph, self.captured = None, {}
+        if dev.type == "cuda":
+            self._capture(dev)
+
+    @property
+    def sp(self):
+        return self._sp()
+
+    def _body(self):
+        state, self.traj, self.shared = self.sp._steps(
+            self.state, self.n, self.preds, self.sync, self.consts, self.t0,
+            want_traj=self.want_traj, want_shared=self.want_shared,
+            save_every=self.save_every)
+        # back into the static state, last entry first: the plain state's
+        # new d_prev is the old d, which for n = 1 is the static d itself
+        for dst, src in reversed(list(zip(self.state, state))):
+            if src is not dst:
+                dst.copy_(src)
+
+    def _capture(self, dev):
+        sp = self.sp
+        if sp.fint_mode == "pallas":
+            kernels.load("dense_step")
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        if sp.fint_mode in ("dense", "banded"):
+            with torch.cuda.stream(stream):
+                sp._step(self.state, None if self.preds is None
+                         else self.preds[:, 0, :], self.sync, self.consts,
+                         self.t0)
+        before = {fn: fn.launches for fn in COUNTED_KERNELS}
+        self.graph = torch.cuda.CUDAGraph()
+        # no collection during the capture: destroying any CUDA graph then
+        # would invalidate it
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self._body()
+        finally:
+            if gc_was_on:
+                gc.enable()
+        for fn in COUNTED_KERNELS:
+            self.captured[fn] = fn.launches - before[fn]
+            fn.launches = before[fn]
+
+    def run(self, state, t0, preds):
+        """Run the chunk from ``state`` (and t0, and the chunk's rows of
+        ``preds``). Returns the new state: the static buffers, which the
+        next run of this chunk overwrites; ``traj`` and ``shared`` hold
+        the recordings until then."""
+        for dst, src in zip(self.state, state):
+            if src is not dst:
+                dst.copy_(src)
+        self.t0.copy_(t0)
+        if self.preds is not None:
+            self.preds.copy_(preds)
+        if self.graph is None:
+            self._body()
+            return self.state
+        self.graph.replay()
+        for fn, n in self.captured.items():
+            fn.launches += n
+        return self.state
+
+
+def graph_chunks(num_steps: int, save_every: int, max_steps: int):
+    """How the stepper cuts ``num_steps`` steps into graph chunks: (G,
+    number of full chunks, remainder). G is a multiple of save_every (so
+    every chunk starts on a recorded step) of at most ``max_steps`` steps
+    (at least save_every), and no longer than the run; the remainder,
+    also a multiple of save_every, is one more chunk when not 0."""
+    if num_steps <= 0 or num_steps % save_every:
+        raise ValueError(f"num_steps ({num_steps}) must be a positive "
+                         f"multiple of save_every ({save_every})")
+    G = min(num_steps, max(save_every, max_steps - max_steps % save_every))
+    n_full, rem = divmod(num_steps, G)
+    return G, n_full, rem
 
 
 class ShardedSolver:
@@ -614,7 +831,10 @@ class ShardedSolver:
         recording, save_every 1. Its VMEM budget is not carried over; the
         size rule here is the kernel's own: one part's state (six (DL,)
         vectors and the slot map) must fit in a block's shared memory,
-        because one block steps each part. K itself need not fit."""
+        which every launch shape of ``dense_step.scan_plan`` needs. K
+        itself need not fit: where it cannot stay on chip (96x8x8/8, 320
+        MB), the plan streams it on the whole card, and the comm-free run
+        still beats the exchanged one (PERF.md)."""
         sp = self.sp
         return (
             not sync

@@ -413,3 +413,111 @@ def test_cuda_scan_matches_plain(dtype):
     assert scan_comm_free.launches == before + 4
     assert res["failures"] == [], res
     assert res["rounding_kernel_max_abs"] == 0.0
+
+
+def _sweep_DL(nx, ny, nz, n_parts):
+    """A sweep case's pallas DL (3 L_max + 1), from its mesh and RCB
+    partition alone (sweep.build_case's)."""
+    from savtpu_torch.mesh import beam_mesh, dirichlet_nodes
+    from savtpu_torch.parallel import build_partition_maps, partition_elements
+
+    m = beam_mesh(nx, ny, nz, (float(nx) / max(ny, 1), 1.0, 1.0))
+    maps = build_partition_maps(
+        m.tetra, partition_elements(m.tetra, m.points, n_parts, "rcb"),
+        m.num_points, dirichlet_nodes(m.triangles, m.points))
+    return 3 * maps.max_local_nodes + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,DL,blocks,resident", [
+    ((25, 1, 1, 2), 163, 1, True),      # one part's K fits one block
+    ((48, 4, 4, 8), 526, 16, True),     # 33 rows of K per block resident
+    ((96, 8, 8, 8), 3160, 16, False),   # 320 MB of K streamed every step
+])
+def test_scan_plan_for_sweep_cases(case, DL, blocks, resident, dtype):
+    """K2's plan for the sweep's three pallas cases on an H100 (132 SMs,
+    227 KB of shared memory a block): one block per part exactly where one
+    part's K fits a block beside the state; else P B <= the SM count,
+    every block with at least one row, and the resident rows within the
+    block's shared memory."""
+    from savtpu_torch.ops import kernels
+    from savtpu_torch.ops.dense_step import forced_plan, scan_plan
+
+    assert _sweep_DL(*case) == DL
+    P, it, sms = case[3], (4 if dtype == torch.float32 else 8), 132
+    plan = scan_plan(P, DL, dtype, sms)
+    assert (plan.blocks, plan.resident) == (blocks, resident)
+    whole_k = 6 * DL * it + 4 * DL + DL * DL * it
+    assert (plan.blocks == 1) == (whole_k <= kernels.SMEM_PER_BLOCK)
+    assert plan.smem <= kernels.SMEM_PER_BLOCK
+    assert plan.blocks * plan.rows >= DL > (plan.blocks - 1) * plan.rows
+    if plan.blocks > 1:
+        assert P * plan.blocks <= sms
+        if plan.resident:
+            assert plan.rows * DL * it < plan.smem
+        else:   # the rows would not fit
+            assert forced_plan(DL, dtype, plan.blocks, True).smem > (
+                kernels.SMEM_PER_BLOCK)
+    # a card with fewer SMs than two per part: one block per part
+    assert scan_plan(P, DL, dtype, P).blocks == 1
+
+
+def _card_plans(dtype):
+    """Every K2 launch shape at the sweep's 48x4x4 / 8-part size: the plan
+    (16 blocks per part, resident), resident in 12 blocks, streamed in 16
+    and 2 blocks, and one block per part streamed."""
+    from savtpu_torch.ops.dense_step import forced_plan
+
+    return [forced_plan(526, dtype, b, r)
+            for b, r in ((16, True), (12, True), (16, False), (2, False),
+                         (1, False))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_forced_card_plans_fit(dtype):
+    """Every launch shape the gpu leg forces at 48x4x4/8 fits an H100:
+    shared memory within a block's, 8 parts' blocks within 132 SMs, and
+    no block without rows."""
+    from savtpu_torch.ops import kernels
+
+    shapes = set()
+    for plan in _card_plans(dtype):
+        assert plan.smem <= kernels.SMEM_PER_BLOCK, plan
+        assert plan.blocks == 1 or 8 * plan.blocks <= 132, plan
+        assert plan.blocks * plan.rows >= 526 > (plan.blocks - 1) * plan.rows
+        shapes.add((plan.blocks > 1, plan.resident))
+    assert shapes == {(True, True), (True, False), (False, False)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_scan_every_plan_matches_plain(dtype):
+    """K2 on the card in each launch shape the plan can take, forced at
+    48x4x4/8: bit for bit with K zeroed, within SCAN_RTOL with K, with and
+    without predictions; the dropped-overwrite control is rejected; one
+    launch per run."""
+    sp = _card_problem(dtype)
+    assert sp.DL == 526
+    smoke = _smoke()
+    for plan in _card_plans(dtype):
+        before = scan_comm_free.launches
+        res = smoke.check_scan_comm_free(sp, 200, 1, plan=plan)
+        torch.cuda.synchronize()
+        assert scan_comm_free.launches == before + 4, plan
+        assert res["failures"] == [], (plan, res)
+
+
+@pytest.mark.gpu
+def test_cuda_scan_one_block_resident_matches_plain():
+    """The one-block kernel with K in shared memory (the sweep's
+    25x1x1/2 plan) against its plain version."""
+    from savtpu_torch.benchmarks.sweep import build_case
+    from savtpu_torch.ops.dense_step import scan_plan, sm_count
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    sp = build_case(25, 1, 1, 2, "pallas", device="cuda")[1]
+    plan = scan_plan(sp.n_parts, sp.DL, sp.dtype, sm_count(sp.device))
+    assert (plan.blocks, plan.resident) == (1, True)
+    res = _smoke().check_scan_comm_free(sp, 500, 1)
+    assert res["failures"] == [], res
