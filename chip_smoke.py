@@ -15,32 +15,40 @@ Phases, each reported with its seconds and the running total against a
 1. build: every CUDA kernel of the paths below, one nvcc per source, all
    at once, with the ptxas register / shared-memory / spill report;
 2. each kernel against its plain PyTorch version, on inputs made from a
-   seed: the online kernel (K3) at the slice's shapes, bit for bit with
-   the band zeroed, within its tolerance with the band, and a control
-   that drops the compensation, which the first check must reject; K1,
-   K2 (with and without predictions, shared rows recorded) and K4 at the
-   shapes of the sweep cases that run them, K2 also at 25x1x1/2 and in
-   every launch shape its plan can take (forced at 48x4x4/8 and 8x1x1/2),
-   K2 and K4 bit for bit with the operator zeroed, each within its
-   tolerance with the operator, and each with a control that the same
-   comparison must reject; then the graph-replayed stepper against the
-   eager loop, bit for bit, with a control that drops the load ramp;
+   seed: the online kernel (K3) at the slice's shapes as band_plan plans
+   it, bit for bit with the band zeroed, within its tolerance with the
+   band, and a control that drops the compensation, which the first check
+   must reject; then K3 in every launch shape the plan can take (one
+   block per part, clusters of 3, 8, 12 and 16 blocks with resident rows,
+   5 blocks all streamed; sizes the card cannot co-schedule left out),
+   forced, over 300 steps; K1, K2 (with and without predictions, shared
+   rows recorded) and K4 at the shapes of the sweep cases that run them,
+   K2 also at 25x1x1/2 and in every launch shape its plan can take
+   (forced at 48x4x4/8 and 8x1x1/2), K4 also at 96x8x8/8 and in every
+   launch shape forced at 96x8x8/16, K2 and K4 bit for bit with the
+   operator zeroed, each within its tolerance with the operator, and each
+   with a control that the same comparison must reject; then the
+   graph-replayed stepper against the eager loop, bit for bit, with a
+   control that drops the load ramp; the cluster table
+   (cudaOccupancyMaxActiveClusters) and the plans are printed;
 3. the paths: the slice, the five-stage pipeline (96x8x8 beam, 16 RCB
    parts, float32 compensated, banded, expfit modal-8 surrogate, 9,000
    steps) through ``api.Simulation(cfg).run_all``'s stages, with the K3
    launch count of that run, the rel-L2 of the sync-avoiding run against
    the exchanged one, and a small run on the GPU held against the same
    run on the CPU; then the scale-out sweep's cases that run K1, K2 and
-   K4 (48x4x4/8 and 96x8x8/8 pallas, 96x8x8/16 banded) through
-   ``savtpu_torch.benchmarks.sweep.bench_case`` with the sweep's step
-   counts, each case's launch counts, steps/s and device memory peak, and
-   tiny sweep problems on the GPU held against the CPU;
-4. kernel timing with CUDA events: kernel, plain version, bound, the
-   PyTorch call that computes the same function where there is one (K1:
-   torch.bmm, both as device time from 100 calls replayed in one CUDA
-   graph, and as eager issue time), peak device memory; and a
-   torch.profiler look at the graph-replayed exchanged stepper (device
-   busy share, longest kernels).
+   K4 (48x4x4/8 and 96x8x8/8 pallas, 96x8x8/16 and 96x8x8/8 banded)
+   through ``savtpu_torch.benchmarks.sweep.bench_case`` with the sweep's
+   step counts, each case's launch counts, steps/s and device memory
+   peak, and tiny sweep problems on the GPU held against the CPU;
+4. kernel timing with CUDA events: kernel, plain version, bound (and for
+   K2, K3 and K4 the floor of re-reading the operator from HBM every
+   step), the plan K3 and K4 ran with, the PyTorch call that computes
+   the same function where there is one (K1: torch.bmm, both as device
+   time from 100 calls replayed in one CUDA graph, and as eager issue
+   time), peak device memory; and a torch.profiler look at the
+   graph-replayed exchanged stepper (device busy share, longest
+   kernels).
 
 ``--keep-traces DIR`` saves the slice's departing and median ranks'
 stage-2 traces for ``scripts/c2_refit_witness.py``.
@@ -221,22 +229,40 @@ def uncompensated_plain(args, kw):
     return hi, lo, v, torch.cat(shared, dim=1), torch.cat(traj, dim=1)
 
 
-def check_online_block(args, kw):
-    """Hold the online block's kernel against its plain version, and show
-    that the checks reject a control that drops the compensation.
+def online_references(args, kw):
+    """What the online-block checks compare the kernel with, computed once
+    for every launch shape: the plain version and the uncompensated
+    control, with the band zeroed and with it, and the plain version in
+    float64."""
+    from savtpu_torch.ops.online_banded import online_chunk_plain
+
+    zargs = zero_band(args)
+    args64 = [a.double() if a.is_floating_point() else a for a in args]
+    return {"zero_ref": online_chunk_plain(*zargs, **kw),
+            "zero_ctl": uncompensated_plain(zargs, kw),
+            "ref": online_chunk_plain(*args, **kw),
+            "ctl": uncompensated_plain(args, kw),
+            "ref64": online_chunk_plain(*args64, **kw)}
+
+
+def check_online_block(args, kw, plan=None, refs=None):
+    """Hold the online block's kernel, launched as ``plan`` says (default:
+    as band_plan plans it), against its plain version, and show that the
+    checks reject a control that drops the compensation.
 
     rounding: band zeroed, kernel and plain version equal bit for bit
     (every output, lo included); band: the slice's band, the compensated
     state, v and the recordings within RTOL of their scale. Returns the
     readings, with the checks that failed under "failures" (the control
-    passing the rounding check is one)."""
+    passing the rounding check is one). ``refs`` (from
+    online_references) saves recomputing the plain runs."""
     from savtpu_torch.ops.online_banded import (
         RTOL,
         block_distance,
         online_chunk,
-        online_chunk_plain,
     )
 
+    refs = refs or online_references(args, kw)
     rtol = RTOL[args[2].dtype]
     every = ("hi", "lo", "v", "shared", "traj")
     limited = ("state", "v", "shared", "traj")
@@ -245,24 +271,25 @@ def check_online_block(args, kw):
         return max(d[k][field] for k in keys)
 
     zargs = zero_band(args)
-    ref = online_chunk_plain(*zargs, **kw)
-    rounding = {"kernel": block_distance(online_chunk(*zargs, **kw), ref),
-                "control": block_distance(uncompensated_plain(zargs, kw), ref)}
-    ref = online_chunk_plain(*args, **kw)
-    out_k = online_chunk(*args, **kw)
+    rounding = {"kernel": block_distance(online_chunk(*zargs, plan=plan,
+                                                      **kw),
+                                         refs["zero_ref"]),
+                "control": block_distance(refs["zero_ctl"],
+                                          refs["zero_ref"])}
+    out_k = online_chunk(*args, plan=plan, **kw)
     for name, t in zip(every, out_k):
         if not bool(t.isfinite().all()):
             raise RuntimeError(f"kernel output {name} is not finite")
-    ctl = uncompensated_plain(args, kw)
-    band = {"kernel": block_distance(out_k, ref),
-            "control": block_distance(ctl, ref)}
-    args64 = [a.double() if a.is_floating_point() else a for a in args]
-    ref64 = online_chunk_plain(*args64, **kw)
-    vs64 = {name: block_distance(o, ref64)["state"]["max_rel"]
-            for name, o in (("kernel", out_k), ("plain", ref),
-                            ("control", ctl))}
+    band = {"kernel": block_distance(out_k, refs["ref"]),
+            "control": block_distance(refs["ctl"], refs["ref"])}
+    vs64 = {name: block_distance(o, refs["ref64"])["state"]["max_rel"]
+            for name, o in (("kernel", out_k), ("plain", refs["ref"]),
+                            ("control", refs["ctl"]))}
     res = {
         "rtol": rtol,
+        "steps": int(args[-1].shape[1]),
+        "plan": (vars(plan) if plan
+                 else planned_band("online_banded", args[0])),
         "rounding_kernel_max_abs": worst(rounding["kernel"], every, "max_abs"),
         "rounding_control_max_abs": worst(rounding["control"], every,
                                           "max_abs"),
@@ -433,20 +460,11 @@ def band_matvec_no_super(Kd, Kl, x):
     return y.reshape(P, nc * Bk)
 
 
-def check_banded_scan(sp, steps, seed):
-    """K4 against its plain version: band zeroed, bit for bit; with the
-    band, within banded_scan.RTOL of the plain state's scale. The
-    control, the plain version whose band matvec drops the
-    super-diagonal term, must fail the same comparison."""
+def banded_scan_inputs(sp, steps, seed):
+    """K4 inputs at a problem's shapes: its band and coefficients and a
+    seeded state. Returns (args, kw) for scan_comm_free_banded."""
     import numpy as np
     import torch
-
-    from savtpu_torch.ops.banded_scan import (
-        RTOL,
-        scan_comm_free_banded,
-        scan_comm_free_banded_plain,
-    )
-    from savtpu_torch.ops.dense_step import scaled_error
 
     rng = np.random.default_rng(seed)
     P, DL = sp.n_parts, sp.DL
@@ -456,23 +474,55 @@ def check_banded_scan(sp, steps, seed):
     args = (sp.band_Kd, sp.band_Kl, d0, dn, 0.05, sp.F_pre, sp.lM,
             sp.bc_mask)
     kw = dict(num_steps=steps, dt=sp.dt, alpha=sp.alpha, ramped=sp.ramped)
+    return args, kw
+
+
+def banded_scan_references(args, kw):
+    """The plain K4 runs its checks compare with, computed once for every
+    launch shape: with the band zeroed, with it, and the control."""
+    import torch
+
+    from savtpu_torch.ops.banded_scan import scan_comm_free_banded_plain
+
+    zargs = (torch.zeros_like(args[0]), torch.zeros_like(args[1]),
+             *args[2:])
+    return {"zero_ref": scan_comm_free_banded_plain(*zargs, **kw),
+            "ref": scan_comm_free_banded_plain(*args, **kw),
+            "ctl": scan_comm_free_banded_plain(
+                *args, matvec=band_matvec_no_super, **kw)}
+
+
+def check_banded_scan(sp, steps, seed, plan=None, refs=None):
+    """K4, launched as ``plan`` says (default: as band_plan plans it),
+    against its plain version: band zeroed, bit for bit; with the band,
+    within banded_scan.RTOL of the plain state's scale. The control, the
+    plain version whose band matvec drops the super-diagonal term, must
+    fail the same comparison. ``refs`` (from banded_scan_references, on
+    the inputs of ``banded_scan_inputs(sp, steps, seed)``) saves
+    recomputing the plain runs."""
+    import torch
+
+    from savtpu_torch.ops.banded_scan import RTOL, scan_comm_free_banded
+    from savtpu_torch.ops.dense_step import scaled_error
+
+    args, kw = banded_scan_inputs(sp, steps, seed)
+    refs = refs or banded_scan_references(args, kw)
     rtol = RTOL[sp.dtype]
     zargs = (torch.zeros_like(args[0]), torch.zeros_like(args[1]),
              *args[2:])
-    rounding = worst_abs(scan_comm_free_banded(*zargs, **kw),
-                         scan_comm_free_banded_plain(*zargs, **kw))
-    out_k = scan_comm_free_banded(*args, **kw)
+    rounding = worst_abs(scan_comm_free_banded(*zargs, plan=plan, **kw),
+                         refs["zero_ref"])
+    out_k = scan_comm_free_banded(*args, plan=plan, **kw)
     if not all(bool(t.isfinite().all()) for t in out_k):
         raise RuntimeError("K4 output is not finite")
-    ref = scan_comm_free_banded_plain(*args, **kw)
-    ctl = scan_comm_free_banded_plain(*args, matvec=band_matvec_no_super,
-                                      **kw)
     res = {
         "rtol": rtol, "steps": steps,
+        "plan": (vars(plan) if plan
+                 else planned_band("banded_scan", args[0])),
         "rounding_kernel_max_abs": rounding,
-        "kernel_max_rel": scaled_error(out_k, ref),
-        "control_max_rel": scaled_error(ctl, ref),
-        "max_abs_err": worst_abs(out_k, ref),
+        "kernel_max_rel": scaled_error(out_k, refs["ref"]),
+        "control_max_rel": scaled_error(refs["ctl"], refs["ref"]),
+        "max_abs_err": worst_abs(out_k, refs["ref"]),
     }
     res["failures"] = [msg for bad, msg in (
         (rounding != 0.0,
@@ -483,6 +533,37 @@ def check_banded_scan(sp, steps, seed):
          "the K4 check does not reject the no-super-diagonal control"),
     ) if bad]
     return res
+
+
+def planned_band(name, Kd):
+    """The plan band_plan gives the kernel ``name`` (online_banded or
+    banded_scan) for the band Kd on its card; on the CPU (the plain
+    version) an empty dict."""
+    from savtpu_torch.ops.band_plan import band_plan, cluster_table
+    from savtpu_torch.ops.dense_step import sm_count
+
+    if Kd.device.type != "cuda":
+        return {}
+    P, nc, Bk, _ = Kd.shape
+    return vars(band_plan(P, nc, Bk, Kd.dtype, sm_count(Kd.device),
+                          cluster_table(name, Kd.dtype, Kd.device)))
+
+
+def band_shapes(nc, Bk, dtype, table):
+    """Every launch shape band_plan can take for a part of nc x Bk rows,
+    as forced plans: one block per part; clusters of 3 (rows crossing
+    chunk boundaries), 8 and 12 blocks; 16 (non-portable); each with as
+    many resident Kd rows as fit; and 5 blocks with every row streamed.
+    Sizes the card cannot run (table[B] == 0) and states too large for a
+    block are left out, as band_plan would leave them."""
+    from savtpu_torch.ops import kernels
+    from savtpu_torch.ops.band_plan import forced_band_plan
+
+    shapes = [(1, None), (3, None), (5, 0), (8, None), (12, None),
+              (16, None)]
+    plans = [forced_band_plan(nc, Bk, dtype, b, r) for b, r in shapes
+             if table.get(b, 0) > 0]
+    return [p for p in plans if p.smem <= kernels.SMEM_PER_BLOCK]
 
 
 def stepper_inputs(sp, steps, seed=SEED):
@@ -603,7 +684,7 @@ def in_turns(plain, kernel, plain_reps, kernel_reps):
 
 # the sweep's cases whose path runs K1, K2 and K4: (mesh, parts, mode)
 SWEEP_PATH = (("48x4x4", 8, "pallas"), ("96x8x8", 8, "pallas"),
-              ("96x8x8", 16, "banded"))
+              ("96x8x8", 16, "banded"), ("96x8x8", 8, "banded"))
 
 
 def sweep_path_cases():
@@ -751,13 +832,15 @@ def time_scan(sp, steps):
 
 def time_banded_scan(sp, steps):
     """K4 and its plain version on the sweep's call: ``steps`` comm-free
-    steps from a zero state."""
+    steps from a zero state; the plan it ran with."""
     import torch
 
+    from savtpu_torch.ops.band_plan import band_plan, cluster_table
     from savtpu_torch.ops.banded_scan import (
         scan_comm_free_banded,
         scan_comm_free_banded_plain,
     )
+    from savtpu_torch.ops.dense_step import sm_count
 
     d0 = torch.zeros((sp.n_parts, sp.DL), dtype=sp.dtype, device=sp.device)
     args = (sp.band_Kd, sp.band_Kl, d0, d0, 0.0, sp.F_pre, sp.lM,
@@ -770,8 +853,19 @@ def time_banded_scan(sp, steps):
     it = d0.element_size()
     b, by = bound_ms(it * (2 * P * nc * Bk * Bk + 7 * P * DLB),
                      steps * P * (2 * (3 * nc - 2) * Bk * Bk + 15 * DLB))
+    table = cluster_table("banded_scan", sp.dtype, sp.device)
+    plan = band_plan(P, nc, Bk, sp.dtype, sm_count(sp.device), table)
     return dict(P=P, nc=nc, Bk=Bk, steps=steps, ms=k, plain_ms=p,
-                plain_ms_runs=runs, bound_ms=b, bound_by=by)
+                plain_ms_runs=runs, bound_ms=b, bound_by=by,
+                bound_band_reread_ms=band_reread_ms(sp.band_Kd, steps),
+                plan=vars(plan), max_active_clusters=table)
+
+
+def band_reread_ms(Kd, steps):
+    """The floor where the band cannot stay on chip (beyond 50 MB of L2
+    and the SMs' shared memory): every step reads Kd and Kl again from
+    HBM."""
+    return steps * 2 * Kd.numel() * Kd.element_size() / PEAK_BYTES * 1e3
 
 
 def stepper_profile(sp, dev, steps):
@@ -927,19 +1021,45 @@ def main(argv=None) -> int:
         P, nc, Bk, _ = sp.band_Kd.shape
         shapes = dict(P=P, nc=nc, Bk=Bk, S3=int(sp.sld.shape[1]), Tc=Tc,
                       save_every=SAVE_EVERY, dtype="float32")
+        from savtpu_torch.ops.band_plan import band_plan, cluster_table
+        from savtpu_torch.ops.dense_step import sm_count
+
+        n_sm = sm_count(dev)
+        tables = {name: cluster_table(name, torch.float32, dev)
+                  for name in ("online_banded", "banded_scan")}
+        k3_plan = band_plan(P, nc, Bk, torch.float32, n_sm,
+                            tables["online_banded"])
+        clock.phase(2, "band_plan", sm_count=n_sm,
+                    max_active_clusters=tables, online_banded_plan=vars(
+                        k3_plan))
         k3 = check_online_block(args, kw)
         torch.cuda.synchronize()
         clock.phase(2, "online_banded_vs_plain", shapes=shapes, **k3)
         if k3["failures"]:
             raise RuntimeError(f"online_banded: {k3['failures']}")
         max_abs_err = k3["max_abs_err"]
+        # every launch shape the plan can take, forced, over 300 steps
+        args_f, kw_f = k3_inputs(sp, dev, 300, SEED)
+        refs = online_references(args_f, kw_f)
+        for plan in band_shapes(nc, Bk, torch.float32,
+                                tables["online_banded"]):
+            res = check_online_block(args_f, kw_f, plan=plan, refs=refs)
+            torch.cuda.synchronize()
+            res.pop("rounding")
+            res.pop("band")
+            clock.phase(2, f"online_banded_b{plan.blocks}_r{plan.resident}"
+                        "_vs_plain", **res)
+            if res["failures"]:
+                raise RuntimeError(f"online_banded {plan}: "
+                                   f"{res['failures']}")
+        del args_f, refs
 
         # K1, K2 and K4 at the shapes of the sweep cases that run them
         from savtpu_torch.benchmarks.sweep import build_case
 
         sweep_sp = {key: build_case(*case[:5], device=dev)[1]
                     for key, case in zip(SWEEP_PATH, sweep_path_cases())}
-        sp48, sp96, sp96b = (sweep_sp[k] for k in SWEEP_PATH)
+        sp48, sp96, sp96b, sp96b8 = (sweep_sp[k] for k in SWEEP_PATH)
         checks = {}
         for tag, sp_k in (("48x4x4_p8", sp48), ("96x8x8_p8", sp96)):
             rng = np.random.default_rng(SEED)
@@ -972,6 +1092,17 @@ def main(argv=None) -> int:
                                                     plan=plan)
         checks["scan_comm_free_banded_96x8x8_p16"] = check_banded_scan(
             sp96b, 1000, SEED)
+        checks["scan_comm_free_banded_96x8x8_p8"] = check_banded_scan(
+            sp96b8, 300, SEED)
+        # K4 in every launch shape the plan can take, forced at 96x8x8/16
+        _, nc4, Bk4, _ = sp96b.band_Kd.shape
+        refs = banded_scan_references(*banded_scan_inputs(sp96b, 300, SEED))
+        for plan in band_shapes(nc4, Bk4, sp96b.dtype,
+                                tables["banded_scan"]):
+            checks[f"scan_comm_free_banded_96x8x8_p16_b{plan.blocks}_"
+                   f"r{plan.resident}"] = check_banded_scan(
+                sp96b, 300, SEED, plan=plan, refs=refs)
+        del refs
         torch.cuda.synchronize()
         for check, res in checks.items():
             clock.phase(2, f"{check}_vs_plain", **res)
@@ -1101,6 +1232,9 @@ def main(argv=None) -> int:
         clock.phase(4, "online_banded_timing", ms=kern, plain_ms=plain_ms,
                     plain_ms_runs=plain_runs, bound_ms=bound_ms,
                     bound_by=bound_by, bytes=nbytes, flops=flops,
+                    bound_band_reread_ms=band_reread_ms(args[0], Tc),
+                    plan=vars(k3_plan),
+                    max_active_clusters=tables["online_banded"],
                     max_memory_allocated=torch.cuda.max_memory_allocated())
         steps_of = {k: c[5] for k, c in zip(SWEEP_PATH, sweep_path_cases())}
         timing = {
@@ -1112,6 +1246,8 @@ def main(argv=None) -> int:
                 sp96, steps_of[SWEEP_PATH[1]]),
             "scan_comm_free_banded_96x8x8_p16": time_banded_scan(
                 sp96b, steps_of[SWEEP_PATH[2]]),
+            "scan_comm_free_banded_96x8x8_p8": time_banded_scan(
+                sp96b8, steps_of[SWEEP_PATH[3]]),
         }
         for what, res in timing.items():
             clock.phase(4, f"{what}_timing", **res)

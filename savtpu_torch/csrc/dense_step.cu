@@ -57,55 +57,19 @@
 namespace {
 
 using savtpu::Rn;
+using savtpu::Vec;
+using savtpu::ld_stream;
 using savtpu::warp_sum;
 
 constexpr int MV_ROWS = 8;       // K1: rows (warps) per block
 constexpr int NT = 1024;         // K2: threads per block
 constexpr int NW = NT / 32;
 
-// 16-byte vectors of the two state types
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  using type = float4;
-  static constexpr int N = 4;
-  __device__ static float dot(const float4& a, const float4& b) {
-    return ((a.x * b.x + a.y * b.y) + a.z * b.z) + a.w * b.w;
-  }
-  __device__ static float dot(const float4& a, const float* b) {
-    return ((a.x * b[0] + a.y * b[1]) + a.z * b[2]) + a.w * b[3];
-  }
-};
-template <> struct Vec<double> {
-  using type = double2;
-  static constexpr int N = 2;
-  __device__ static double dot(const double2& a, const double2& b) {
-    return a.x * b.x + a.y * b.y;
-  }
-  __device__ static double dot(const double2& a, const double* b) {
-    return a.x * b[0] + a.y * b[1];
-  }
-};
-
 // How a row of K is read: from global memory as a read-only stream that
 // does not allocate in L1 and asks L2 for whole 256-byte sectors (K1 and
 // K2 streamed; at 96x8x8/8 K1 reads K 1.6% faster than with __ldg), or
 // plainly (K in shared memory).
 enum class KLoad { global, shared };
-
-__device__ __forceinline__ float4 ld_stream(const float4* p) {
-  float4 v;
-  asm volatile(
-      "ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0,%1,%2,%3}, [%4];"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ double2 ld_stream(const double2* p) {
-  double2 v;
-  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v2.f64 {%0,%1}, [%2];"
-               : "=d"(v.x), "=d"(v.y) : "l"(p));
-  return v;
-}
 
 template <KLoad M, typename V>
 __device__ __forceinline__ V load_k(const V* p) {

@@ -15,11 +15,13 @@ they stay 0; the results are cut back to (P, DL) with the dummy slot 0
 
 Three pieces, as for every kernel of the port: the plain PyTorch version
 :func:`scan_comm_free_banded_plain`; the CUDA kernel in
-``csrc/banded_scan.cu`` (one persistent block per part, band streamed from
-global memory every step; its design and bound are described there); and
-the wrapper :func:`scan_comm_free_banded`, which takes the plain version
-for a CPU tensor and launches the kernel, or raises, for a CUDA tensor.
-``scan_comm_free_banded.launches`` counts the kernel launches.
+``csrc/banded_scan.cu`` (one part per thread block cluster, its rows split
+over the cluster's blocks, the state exchanged through distributed shared
+memory; its design and bound are described there); and the wrapper
+:func:`scan_comm_free_banded`, which takes the plain version for a CPU
+tensor and launches the kernel, or raises, for a CUDA tensor, as
+``ops/band_plan.py`` plans it. ``scan_comm_free_banded.launches`` counts
+the kernel launches.
 
 Rounding: the plain version follows the kernel, which follows the TPU
 kernel (t = t0 + i dt, coefficients from t0, dt, alpha in the state
@@ -33,9 +35,16 @@ import ctypes
 import torch
 
 from . import kernels
+from .band_plan import (
+    band_plan,
+    check_band_operands,
+    check_band_plan,
+    cluster_table,
+)
 from .dense_step import (
     central_difference_plain,
     ramp_at,
+    sm_count,
     step_scalars,
 )
 from .online_banded import band_matvec
@@ -109,18 +118,29 @@ def scan_fits(nc: int, Bk: int, dtype) -> bool:
     return 6 * nc * Bk * itemsize <= kernels.SMEM_PER_BLOCK
 
 
-# 9 tensor pointers and the stream; P, nc, Bk, num_steps, ramped; t0, dt,
-# alpha
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+# 9 tensor pointers and the stream; P, nc, Bk, num_steps, ramped, blocks,
+# resident rows, shared-memory bytes; t0, dt, alpha
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
              + [ctypes.c_double] * 3)
 
 
 def scan_comm_free_banded(Kd, Kl, d0, dn, t0, F_pre, lM, bc, *, num_steps,
-                          dt, alpha, ramped):
+                          dt, alpha, ramped, plan=None):
     """The banded comm-free scan (arguments and results as in
     :func:`scan_comm_free_banded_plain`). CPU tensors run the plain
-    version; CUDA tensors launch K4 of ``csrc/banded_scan.cu``."""
+    version; CUDA tensors launch K4 of ``csrc/banded_scan.cu`` as
+    ``band_plan.band_plan`` plans it. ``plan`` (a ``BandPlan``, from
+    ``band_plan.forced_band_plan``) overrides the plan, so that the checks
+    can run every launch shape; it is refused for a shape it does not fit
+    and on a CPU tensor. The solver never passes it."""
+    P, nc, Bk, _ = Kd.shape
+    if plan is not None:
+        check_band_plan("scan_comm_free_banded", plan, nc, Bk, d0.dtype)
     if d0.device.type == "cpu":
+        if plan is not None:
+            raise ValueError("scan_comm_free_banded: plan= sets the CUDA "
+                             "kernel's launch; a CPU tensor runs the plain "
+                             "version")
         return scan_comm_free_banded_plain(
             Kd, Kl, d0, dn, t0, F_pre, lM, bc, num_steps=num_steps, dt=dt,
             alpha=alpha, ramped=ramped,
@@ -130,7 +150,6 @@ def scan_comm_free_banded(Kd, Kl, d0, dn, t0, F_pre, lM, bc, *, num_steps,
             f"scan_comm_free_banded: unsupported device {d0.device}")
     dtype, dev = d0.dtype, d0.device
     sfx = kernels.suffix(dtype)
-    P, nc, Bk, _ = Kd.shape
     DLB, DL = nc * Bk, d0.shape[1]
     if num_steps <= 0:
         raise ValueError("scan_comm_free_banded: num_steps must be positive")
@@ -140,10 +159,14 @@ def scan_comm_free_banded(Kd, Kl, d0, dn, t0, F_pre, lM, bc, *, num_steps,
         + [(name, t, (P, DL)) for name, t in (
             ("d0", d0), ("dn", dn), ("F_pre", F_pre), ("lM", lM),
             ("bc", bc))])
+    check_band_operands("scan_comm_free_banded", Kd, Kl)
     if not scan_fits(nc, Bk, dtype):
         raise ValueError(
             f"scan_comm_free_banded: nc*Bk={DLB} {dtype} state exceeds a "
             "block's shared memory")
+    if plan is None:
+        plan = band_plan(P, nc, Bk, dtype, sm_count(dev),
+                         cluster_table("banded_scan", dtype, dev))
     vecs = (fit(d0, DLB), fit(dn, DLB), fit(F_pre, DLB), fit(lM, DLB, 1.0),
             fit(bc, DLB))
     d0_out = torch.empty((P, DLB), dtype=dtype, device=dev)
@@ -152,8 +175,8 @@ def scan_comm_free_banded(Kd, Kl, d0, dn, t0, F_pre, lM, bc, *, num_steps,
                           _ARGTYPES)
     err = fn(Kd.data_ptr(), Kl.data_ptr(), *[v.data_ptr() for v in vecs],
              d0_out.data_ptr(), dn_out.data_ptr(), kernels.stream(dev), P,
-             nc, Bk, int(num_steps), int(bool(ramped)), float(t0),
-             float(dt), float(alpha))
+             nc, Bk, int(num_steps), int(bool(ramped)), plan.blocks,
+             plan.resident, plan.smem, float(t0), float(dt), float(alpha))
     kernels.check("banded_scan", err, "banded_scan launch")
     scan_comm_free_banded.launches += 1
     t0c, dtc = step_scalars(t0, dt, alpha, dtype, dev)[:2]

@@ -20,30 +20,32 @@ Three pieces, as for every kernel of the port:
 - ``online_chunk_plain``: the plain PyTorch version, with the op order of
   the compensated branch of ``ShardedProblem.stacked_run``. The CPU path
   and the tests use it.
-- ``csrc/online_banded.cu``: the CUDA kernel. One persistent thread block
-  per part (the counterpart of the TPU grid over parts with an in-kernel
-  loop) walks all steps; hi, lo, v, the matvec operand and result and the
-  per-DOF coefficients live in shared memory. The shared-slot overwrite
-  and gather are direct indexed accesses through a slot map built from
-  ``sld``: the TPU needed one-hot matmuls only because arbitrary-index
-  gathers do not vectorise there, and those are exact, so the values are
-  the same. It is compiled with ``-fmad=false``: the update and the
-  compensation round exactly like the plain version. Only the order of
-  the sums inside the band matvec and the translation mean differs.
+- ``csrc/online_banded.cu``: the CUDA kernel. One part runs on a thread
+  block cluster of B blocks (``ops/band_plan.py`` picks B: 6 at the
+  16-part slice on an H100), each block walking all steps for its own
+  range of rows, with hi, lo, v and the per-DOF coefficients of its rows
+  in shared memory. The band matvec's transposed-term shares, the new hi
+  and the partial sums of the translation mean cross blocks through
+  distributed shared memory, two cluster barriers a step; every block
+  adds the partials in the same order, so all use the same mean. The
+  shared-slot overwrite and gather are direct indexed accesses through a
+  slot map built from ``sld``: the TPU needed one-hot matmuls only
+  because arbitrary-index gathers do not vectorise there, and those are
+  exact, so the values are the same. It is compiled with
+  ``-fmad=false``: the update and the compensation round exactly like
+  the plain version. Only the order of the sums inside the band matvec
+  and the translation mean differs.
 - ``online_chunk``: the wrapper. A tensor on the CPU takes the plain
   version; a CUDA tensor launches the kernel or raises.
   ``online_chunk.launches`` counts the kernel launches.
 
-What bounds the kernel on an H100: the band. One part's Kd and Kl are
-2 nc Bk^2 values (3.7 MB at nc=7, Bk=256, float32), far above the 227 KB a
-block may hold, so every step re-reads them from global memory; all
-parts' band (58.7 MB) is just over the 50 MB L2. With one block per part
-only P of the 132 SMs are busy (16 at the 16-part slice), and each step is
-bound by what those SMs can stream. The design keeps everything else
-on-chip (state, coefficients, matvec operand) and reads the band
-coalesced: the row products with a warp per row, the transposed term
-with a thread per column. Spreading a part over several SMs (cluster
-shared memory for the state) is the redesign a later PR makes.
+What bounds the kernel on an H100: the band, read every step. One part's
+Kd and Kl are 2 nc Bk^2 values (3.7 MB at nc=7, Bk=256, float32), far
+above the 227 KB a block may hold; all parts' band (58.7 MB) is just over
+the 50 MB L2. With one block per part only P of the 132 SMs pulled it (16
+at the slice), Kl twice a step; over a cluster of 6 blocks each block
+keeps most of its Kd rows in shared memory and streams the rest and its
+Kl rows once, about 36 MB a step over 96 SMs.
 """
 
 from __future__ import annotations
@@ -53,6 +55,13 @@ import ctypes
 import torch
 
 from . import kernels
+from .band_plan import (
+    band_plan,
+    check_band_operands,
+    check_band_plan,
+    cluster_table,
+)
+from .dense_step import sm_count
 from .material import linear_ramp
 
 
@@ -163,17 +172,27 @@ def block_distance(out_a, out_b) -> dict:
     return out
 
 
-# 16 tensor pointers and the stream, 7 ints, 5 doubles (csrc signature)
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [
+# 16 tensor pointers and the stream, 10 ints, 5 doubles (csrc signature)
+_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [
     ctypes.c_double] * 5
 
 
 def online_chunk(Kd, Kl, hi, lo, v, Fp, lM, bc, dm, sld, smask, preds, *,
-                 t0, i0, dt, alpha, ramped, save_every):
+                 t0, i0, dt, alpha, ramped, save_every, plan=None):
     """The online block for all parts (arguments and results as in
     :func:`online_chunk_plain`). CPU tensors run the plain version; CUDA
-    tensors launch the kernel of ``csrc/online_banded.cu``."""
+    tensors launch the kernel of ``csrc/online_banded.cu`` as
+    ``band_plan.band_plan`` plans it. ``plan`` (a ``BandPlan``, from
+    ``band_plan.forced_band_plan``) overrides the plan, so that the checks
+    can run every launch shape; it is refused for a shape it does not fit
+    and on a CPU tensor. The solver never passes it."""
+    P, nc, Bk, _ = Kd.shape
+    if plan is not None:
+        check_band_plan("online_chunk", plan, nc, Bk, hi.dtype)
     if hi.device.type == "cpu":
+        if plan is not None:
+            raise ValueError("online_chunk: plan= sets the CUDA kernel's "
+                             "launch; a CPU tensor runs the plain version")
         return online_chunk_plain(
             Kd, Kl, hi, lo, v, Fp, lM, bc, dm, sld, smask, preds,
             t0=t0, i0=i0, dt=dt, alpha=alpha, ramped=ramped,
@@ -182,9 +201,7 @@ def online_chunk(Kd, Kl, hi, lo, v, Fp, lM, bc, dm, sld, smask, preds, *,
     if hi.device.type != "cuda":
         raise ValueError(f"online_chunk: unsupported device {hi.device}")
     dtype, dev = hi.dtype, hi.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"online_chunk: unsupported dtype {dtype}")
-    P, nc, Bk, _ = Kd.shape
+    sfx = kernels.suffix(dtype)
     DLB = nc * Bk
     Tc, S3 = preds.shape[1], preds.shape[2]
     if Tc % save_every:
@@ -195,22 +212,25 @@ def online_chunk(Kd, Kl, hi, lo, v, Fp, lM, bc, dm, sld, smask, preds, *,
         [("Kd", Kd, (P, nc, Bk, Bk)), ("Kl", Kl, (P, nc, Bk, Bk)),
          ("preds", preds, (P, Tc, S3)), ("smask", smask, (P, S3))]
         + [(f"vec{j}", t, (P, DLB)) for j, t in enumerate(vecs)])
+    check_band_operands("online_chunk", Kd, Kl)
     if sld.shape != (P, S3) or sld.device != dev:
         raise ValueError("online_chunk: sld must be (P, S3) on the device")
+    if plan is None:
+        plan = band_plan(P, nc, Bk, dtype, sm_count(dev),
+                         cluster_table("online_banded", dtype, dev))
     slot = kernels.slot_map(sld, smask, DLB)
 
     outs = [torch.empty((P, DLB), dtype=dtype, device=dev) for _ in range(3)]
     shared = torch.zeros((P, Tc, S3), dtype=dtype, device=dev)
     traj = torch.empty((P, Tc // save_every, DLB), dtype=dtype, device=dev)
-    fn = kernels.function(
-        "online_banded",
-        "savtpu_online_banded_f32" if dtype == torch.float32
-        else "savtpu_online_banded_f64", _ARGTYPES)
+    fn = kernels.function("online_banded", f"savtpu_online_banded_{sfx}",
+                          _ARGTYPES)
     c1, c2 = _coeffs(dt, alpha)
     ptrs = [t.data_ptr() for t in (Kd, Kl, *vecs, slot, preds, *outs,
                                    shared, traj)]
     err = fn(*ptrs, kernels.stream(dev), P, nc, Bk, S3, Tc, save_every,
-             1 if ramped else 0, float(t0), float(i0), float(dt), c1, c2)
+             1 if ramped else 0, plan.blocks, plan.resident, plan.smem,
+             float(t0), float(i0), float(dt), c1, c2)
     kernels.check("online_banded", err, "online_banded launch")
     online_chunk.launches += 1
     return outs[0], outs[1], outs[2], shared, traj

@@ -198,3 +198,183 @@ def test_cuda_banded_scan_matches_plain(dtype):
     assert scan_comm_free_banded.launches == before + 2
     assert res["failures"] == [], res
     assert res["rounding_kernel_max_abs"] == 0.0
+
+
+# The launch plan shared by K3 and K4 (savtpu_torch/ops/band_plan.py).
+# Band shapes (P, nc, Bk) of the sweep's banded cases, as the band builder
+# makes them (test_band_shapes_of_sweep_cases checks the two 96x8x8 ones;
+# 192x12x12/64 and 384x16x16/256 from the sweep's runs, PERF.md).
+BAND_SHAPES = {
+    "96x8x8/16": (16, 7, 256),    # the slice and the sweep's banded case
+    "96x8x8/8": (8, 7, 512),      # bandwidth above 256: Bk 512
+    "192x12x12/64": (64, 8, 256),
+    "384x16x16/256": (256, 7, 256),
+}
+# cudaOccupancyMaxActiveClusters of the port's banded kernels on an H100
+# 80GB HBM3 (132 SMs), clusters of B blocks with a full block's shared
+# memory (PERF.md): the uneven GPCs hold 15 clusters of 8, not 16
+H100 = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9,
+        10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+
+
+def test_band_shapes_of_sweep_cases():
+    """The band builder's (P, nc, Bk) at the two 96x8x8 banded cases."""
+    from savtpu_torch.benchmarks.sweep import build_case
+
+    for tag, case in (("96x8x8/16", (96, 8, 8, 16)),
+                      ("96x8x8/8", (96, 8, 8, 8))):
+        _, sp = build_case(*case, "banded", device="cpu",
+                           dtype=torch.float32)
+        assert tuple(sp.band_Kd.shape[:3]) == BAND_SHAPES[tag]
+
+
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("tag,blocks,resident", [
+    ("96x8x8/16", {F32: 6, F64: 6}, {F32: 189, F64: 82}),
+    ("96x8x8/8", {F32: 9, F64: 9}, {F32: 87, F64: 31}),
+    ("192x12x12/64", {F32: 2, F64: 2}, {F32: 152, F64: 41}),
+    ("384x16x16/256", {F32: 1, F64: 2}, {F32: 112, F64: 47}),
+])
+def test_band_plan_for_sweep_and_slice_shapes(tag, blocks, resident,
+                                              dtype):
+    """band_plan on a 132-SM card with the H100's cluster table: the
+    largest cluster whose P copies all run at once (16 parts: 15 clusters
+    of 7 or 8 run at once, 17 of 6, so 6; 8 parts: 7 of 10-16, 9 of 9,
+    so 9; 64 parts: 2), one block per part where the parts outnumber the
+    SMs, or two where one block cannot hold a part's state (384x16x16/256
+    in float64; clusters in waves); as many Kd rows resident as fit
+    beside the state; the shared memory as band_layout_bytes counts it,
+    within a block's."""
+    from savtpu_torch.ops import kernels
+    from savtpu_torch.ops.band_plan import (
+        band_layout_bytes,
+        band_plan,
+        forced_band_plan,
+    )
+
+    P, nc, Bk = BAND_SHAPES[tag]
+    it = 4 if dtype == torch.float32 else 8
+    plan = band_plan(P, nc, Bk, dtype, 132, H100)
+    B = blocks[dtype]
+    assert (plan.blocks, plan.resident) == (B, resident[dtype])
+    assert plan.rows == -(-nc * Bk // B)
+    assert plan.smem == band_layout_bytes(nc, Bk, it, B, plan.resident)
+    assert plan.smem <= kernels.SMEM_PER_BLOCK
+    assert plan.smem + Bk * it > kernels.SMEM_PER_BLOCK  # one more: no
+    # on a table where every size fits its SMs, 8 parts take 16 blocks
+    even = {b: 132 // b for b in range(1, 17)}
+    if P == 8:
+        assert band_plan(P, nc, Bk, dtype, 132, even).blocks == 16
+    # a card with fewer SMs than two per part: one block per part, or
+    # where one block cannot hold the state, the fewest blocks that can
+    # (96x8x8/8 float64: 3)
+    fewest = min(b for b in range(1, 17) if forced_band_plan(
+        nc, Bk, dtype, b).smem <= kernels.SMEM_PER_BLOCK)
+    assert band_plan(P, nc, Bk, dtype, P, H100).blocks == fewest
+
+
+def _rows_of(plan, DLB):
+    return [range(b * plan.rows, min(DLB, (b + 1) * plan.rows))
+            for b in range(plan.blocks)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_every_band_plan_fits_and_covers_the_rows(dtype):
+    """Every plan band_plan or forced_band_plan gives, for the sweep's
+    shapes and small ones (nc 1-3) at 1-16 blocks, fits 232,448 bytes,
+    and its blocks' rows cover the part's DLB rows exactly once, each
+    block's window holding its rows' chunks and the chunk before them."""
+    from savtpu_torch.ops import kernels
+    from savtpu_torch.ops.band_plan import band_plan, forced_band_plan
+
+    shapes = [s[1:] for s in BAND_SHAPES.values()] + [(1, 256), (2, 256),
+                                                      (3, 512)]
+    seen = 0
+    for nc, Bk in shapes:
+        DLB = nc * Bk
+        plans = [band_plan(P, nc, Bk, dtype, 132, t)
+                 for P in (1, 2, 8, 16, 64, 256) for t in (H100, {})]
+        for B in range(1, 17):
+            for res in (None, 0):
+                p = forced_band_plan(nc, Bk, dtype, B, res)
+                if p.smem <= kernels.SMEM_PER_BLOCK:
+                    plans.append(p)
+        for plan in plans:
+            assert plan.smem <= kernels.SMEM_PER_BLOCK, plan
+            assert 0 <= plan.resident <= plan.rows
+            rows = [i for r in _rows_of(plan, DLB) for i in r]
+            assert sorted(rows) == list(range(DLB)), plan
+            assert len(rows) == DLB
+            for r in _rows_of(plan, DLB):
+                if len(r):
+                    lo = max(0, r[0] // Bk - 1) * Bk
+                    hi = (r[-1] // Bk + 1) * Bk
+                    assert hi - lo <= plan.window, plan
+            seen += 1
+    assert seen > 100
+
+
+def test_banded_scan_plan_refused_on_cpu_and_when_it_does_not_fit():
+    """plan= sets the CUDA kernel's launch: a CPU tensor refuses it, and
+    a plan that does not fit the band's shape or a block is refused
+    before anything runs."""
+    import dataclasses
+
+    from savtpu_torch.ops.band_plan import forced_band_plan
+
+    _, st = _pair((25, 2, 2))
+    P, nc, Bk, _ = st.band_Kd.shape
+    d0, dn = _states(st)
+    args = (st.band_Kd, st.band_Kl, torch.as_tensor(d0),
+            torch.as_tensor(dn), 0.1, st.F_pre, st.lM, st.bc_mask)
+    kw = dict(num_steps=5, dt=st.dt, alpha=st.alpha, ramped=True)
+    good = forced_band_plan(nc, Bk, torch.float64, 2)
+    before = scan_comm_free_banded.launches
+    with pytest.raises(ValueError, match="CPU tensor"):
+        scan_comm_free_banded(*args, plan=good, **kw)
+    bad = [
+        forced_band_plan(nc + 1, Bk, torch.float64, 2),   # another shape
+        dataclasses.replace(good, resident=good.rows + 1),
+        dataclasses.replace(good, smem=good.smem + 16),
+        dataclasses.replace(good, blocks=17),
+        forced_band_plan(8, 512, torch.float64, 1, 0),    # 359 KB
+    ]
+    for plan in bad:
+        with pytest.raises(ValueError, match="does not fit"):
+            scan_comm_free_banded(*args, plan=plan, **kw)
+    assert scan_comm_free_banded.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_banded_scan_every_shape_matches_plain(dtype):
+    """K4 on the card in every launch shape band_plan can take (forced:
+    1, 3, 8, 12 and 16 blocks with resident rows, 5 streamed, and 2 with
+    and without), at 25x2x2/2 (two chunks): bit for bit with the band
+    zeroed, within RTOL with the band, the control rejected, two launches
+    per check."""
+    from savtpu_torch.benchmarks.sweep import build_case
+    from savtpu_torch.ops.band_plan import cluster_table, forced_band_plan
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    _, sp = build_case(25, 2, 2, 2, "banded", device="cuda", dtype=dtype)
+    P, nc, Bk, _ = sp.band_Kd.shape
+    smoke = _smoke()
+    table = cluster_table("banded_scan", dtype, sp.device)
+    refs = smoke.banded_scan_references(
+        *smoke.banded_scan_inputs(sp, 200, 2))
+    plans = smoke.band_shapes(nc, Bk, dtype, table) + [
+        forced_band_plan(nc, Bk, dtype, 2), forced_band_plan(nc, Bk, dtype,
+                                                             2, 0)]
+    assert len(plans) >= 5
+    for plan in plans:
+        before = scan_comm_free_banded.launches
+        res = smoke.check_banded_scan(sp, 200, 2, plan=plan, refs=refs)
+        torch.cuda.synchronize()
+        assert scan_comm_free_banded.launches == before + 2, plan
+        assert res["failures"] == [], (plan, res)
+        assert res["rounding_kernel_max_abs"] == 0.0

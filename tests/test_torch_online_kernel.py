@@ -222,9 +222,11 @@ def test_subchunking_matches_single():
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def _port_inputs(dtype, device, steps=60, save_every=5, seed=0):
-    """Online-block inputs from the port's own setup (12x2x2 beam, 4
-    parts, banded) with a seeded state and smooth seeded predictions."""
+def _port_inputs(dtype, device, steps=60, save_every=5, seed=0,
+                 cells=(12, 2, 2), n_parts=4):
+    """Online-block inputs from the port's own setup (default a 12x2x2
+    beam, 4 parts, banded) with a seeded state and smooth seeded
+    predictions."""
     from savtpu_torch.config import Config
     from savtpu_torch.mesh import dirichlet_nodes
     from savtpu_torch.parallel import (
@@ -235,12 +237,13 @@ def _port_inputs(dtype, device, steps=60, save_every=5, seed=0):
     from savtpu_torch.solvers import setup_problem
 
     cfg = Config()
-    cfg.beam_cells = (12, 2, 2)
-    cfg.beam_extent = (6.0, 1.0, 1.0)
+    cfg.beam_cells = cells
+    cfg.beam_extent = (cells[0] / cells[1], 1.0, 1.0)
     prob = setup_problem(cfg, dtype=dtype)
     m = prob.mesh
     maps = build_partition_maps(
-        m.tetra, partition_elements(m.tetra, m.points, 4), m.num_points,
+        m.tetra, partition_elements(m.tetra, m.points, n_parts),
+        m.num_points,
         dirichlet_nodes(m.triangles, m.points),
     )
     sp = ShardedProblem.build(prob, maps, fint_mode="banded", dtype=dtype,
@@ -343,3 +346,116 @@ def test_port_inputs_on_cpu_match_plain():
     for x, y in zip(a, b):
         assert bool(x.isfinite().all())
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_online_plan_refused_on_cpu_and_when_it_does_not_fit():
+    """plan= sets the CUDA kernel's launch: a CPU tensor refuses it, and
+    a plan that does not fit the band's shape or a block is refused
+    before anything runs."""
+    import dataclasses
+
+    from savtpu_torch.ops.band_plan import forced_band_plan
+
+    args, kw = _port_inputs(torch.float64, torch.device("cpu"), steps=10)
+    P, nc, Bk, _ = args[0].shape
+    good = forced_band_plan(nc, Bk, torch.float64, 3)
+    before = online_chunk.launches
+    with pytest.raises(ValueError, match="CPU tensor"):
+        online_chunk(*args, plan=good, **kw)
+    for plan in (forced_band_plan(nc + 1, Bk, torch.float64, 3),
+                 dataclasses.replace(good, resident=good.rows + 1),
+                 dataclasses.replace(good, rows=good.rows - 1),
+                 dataclasses.replace(good, blocks=0),
+                 dataclasses.replace(good, smem=300_000)):
+        with pytest.raises(ValueError, match="does not fit"):
+            online_chunk(*args, plan=plan, **kw)
+    assert online_chunk.launches == before
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+def test_online_gate_agrees_with_savtpu(compensated):
+    """The port's K3 gate (ShardedProblem._online_ok) takes the same runs
+    as savtpu's _online_pallas_ok over (sync, preds, record, save_every,
+    num_steps), on a banded problem, plain and compensated."""
+    import itertools
+
+    import jax.numpy as jnp
+    from savtpu.config import Config as JConfig
+    from savtpu.mesh import dirichlet_nodes
+    from savtpu.parallel import ShardedProblem as JShardedProblem
+    from savtpu.parallel import build_partition_maps, partition_elements
+    from savtpu.solvers import setup_problem
+
+    cfg = JConfig()
+    cfg.beam_cells = (12, 2, 2)
+    cfg.beam_extent = (6.0, 1.0, 1.0)
+    prob = setup_problem(cfg, dtype=jnp.float64)
+    m = prob.mesh
+    maps = build_partition_maps(
+        m.tetra, partition_elements(m.tetra, m.points, 4), m.num_points,
+        dirichlet_nodes(m.triangles, m.points))
+    sj = JShardedProblem.build(prob, maps, fint_mode="banded",
+                               dtype=jnp.float64, compensated=compensated)
+    fields = ("n_parts", "DL", "SD", "dt", "alpha", "ramped", "fint_mode",
+              "compensated", "local_dofs_global", "dof_mask", "bc_mask",
+              "lM", "F_pre", "sld", "sgi", "smask", "band_Kd", "band_Kl")
+    arrays = {k: getattr(sj, k) for k in fields}
+    arrays = {k: (np.asarray(v) if hasattr(v, "shape") else v)
+              for k, v in arrays.items()}
+    st, _ = from_savtpu_arrays(arrays)
+    seen = set()
+    for sync, use_preds, record, save_every, steps in itertools.product(
+            (True, False), (False, True), ("all", "traj", "shared", "none"),
+            (1, 5), (30, 32)):
+        preds = np.zeros((1,)) if use_preds else None
+        ok = st._online_ok(sync, preds, record, save_every, steps)
+        assert ok == sj._online_pallas_ok(sync, preds, None, record,
+                                          save_every, steps, jnp.float64)
+        seen.add(ok)
+    assert seen == ({True, False} if compensated else {False})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_kernel_every_shape_matches_plain(dtype):
+    """K3 on the card in every launch shape band_plan can take (forced:
+    1, 3, 8, 12 and 16 blocks with resident rows, 5 streamed, and 2 with
+    and without), at 25x2x2/2 (two chunks): bit for bit with the band
+    zeroed (lo included), the compensated state, v and the recordings
+    within RTOL with the band, one launch per call."""
+    import importlib.util
+    from pathlib import Path
+
+    from savtpu_torch.ops.band_plan import cluster_table, forced_band_plan
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernel runs only on the card")
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    dev = torch.device("cuda")
+    args, kw = _port_inputs(dtype, dev, steps=60, cells=(25, 2, 2),
+                            n_parts=2)
+    P, nc, Bk, _ = args[0].shape
+    assert nc > 1
+    table = cluster_table("online_banded", dtype, dev)
+    plans = smoke.band_shapes(nc, Bk, dtype, table) + [
+        forced_band_plan(nc, Bk, dtype, 2),
+        forced_band_plan(nc, Bk, dtype, 2, 0)]
+    assert len(plans) >= 5
+    zargs = _zero_band(args)
+    zref = online_chunk_plain(*zargs, **kw)
+    ref = online_chunk_plain(*args, **kw)
+    for plan in plans:
+        before = online_chunk.launches
+        zout = online_chunk(*zargs, plan=plan, **kw)
+        out = online_chunk(*args, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert online_chunk.launches == before + 2, plan
+        for a, b in zip(zout, zref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        dist = block_distance(out, ref)
+        for name in ("state", "v", "shared", "traj"):
+            assert dist[name]["max_rel"] <= RTOL[dtype], (plan, name,
+                                                         dist[name])
