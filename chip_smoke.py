@@ -2,11 +2,14 @@
 """Drive savtpu_torch's main path on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py [--steps N] [--dtype float32|float64]
+                          [--lstm-epochs E]
 
 ``--steps`` sets the slice's depth (default 9,000; 100,000 is the
 published schedule); ``--dtype`` its state dtype in phase 3 (default
 float32, as published; float64, also compensated so that it runs the
-same kernel, separates round-off from the rest).
+same kernel, separates round-off from the rest). ``--lstm-epochs`` sets
+the default configuration's training depth (default 1,500, cut from the
+published 3,450 to keep the script within about 450 s).
 
 Phases, each reported with its seconds and the running total against a
 600 s budget:
@@ -30,7 +33,12 @@ Phases, each reported with its seconds and the running total against a
    with a control that the same comparison must reject; then the
    graph-replayed stepper against the eager loop, bit for bit, with a
    control that drops the load ramp; the cluster table
-   (cudaOccupancyMaxActiveClusters) and the plans are printed;
+   (cudaOccupancyMaxActiveClusters) and the plans are printed; then the
+   LSTM surrogate at the default run's shapes: predict on the card
+   against the CPU (float64 within 1e-12, float32 within 1e-5, with a
+   TF32 control the float32 check must reject), stage 3 switching TF32
+   off itself, one float64 training epoch card against CPU (1e-10), and
+   graph-replayed epochs against eager ones, bit for bit;
 3. the paths: the slice, the five-stage pipeline (96x8x8 beam, 16 RCB
    parts, float32 compensated, banded, expfit modal-8 surrogate, 9,000
    steps) through ``api.Simulation(cfg).run_all``'s stages, with the K3
@@ -40,7 +48,14 @@ Phases, each reported with its seconds and the running total against a
    K4 (48x4x4/8 and 96x8x8/8 pallas, 96x8x8/16 and 96x8x8/8 banded)
    through ``savtpu_torch.benchmarks.sweep.bench_case`` with the sweep's
    step counts, each case's launch counts, steps/s and device memory
-   peak, and tiny sweep problems on the GPU held against the CPU;
+   peak, and tiny sweep problems on the GPU held against the CPU; then
+   the default ``Config()`` (25x1x1 beam, 2 parts, dense, float64, the
+   stacked LSTM surrogate) through the same stages at its 100,000
+   steps, the training cut to ``--lstm-epochs``: stage seconds, epochs/s
+   and Adam steps/s, the rel-L2, the warm-up rows equal to stage 1's bit
+   for bit; and its stage 4 again from a copy in fint_mode "pallas",
+   where K1 must launch once a step and the result stay within 1e-5 of
+   the dense run;
 4. kernel timing with CUDA events: kernel, plain version, bound (and for
    K2, K3 and K4 the floor of re-reading the operator from HBM every
    step), the plan K3 and K4 ran with, the PyTorch call that computes
@@ -48,7 +63,9 @@ Phases, each reported with its seconds and the running total against a
    time from 100 calls replayed in one CUDA graph, and as eager issue
    time), peak device memory; and a torch.profiler look at the
    graph-replayed exchanged stepper (device busy share, longest
-   kernels).
+   kernels); stage 3's training epoch eager and graph-replayed, the
+   replayed epoch's busy share and kernel count, and one stage-4 block's
+   LSTM prediction.
 
 ``--keep-traces DIR`` saves the slice's departing and median ranks'
 stage-2 traces for ``scripts/c2_refit_witness.py``.
@@ -78,6 +95,10 @@ SEED = 1234
 # fallback; --steps 100000 runs the published depth and the fit proper
 STEPS = 9000
 SAVE_EVERY = 50
+# the default-config run's training depth: cut from the published 3,450
+# epochs so that the script stays within about 450 s (PERF.md);
+# --lstm-epochs 3450 runs it in full
+LSTM_EPOCHS = 1500
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s off the
 # tensor cores
 PEAK_BYTES = 3.35e12
@@ -931,6 +952,337 @@ def keep_traces(out_dir, cfg, store, per_rank, dt):
         expfit_order=sur.expfit_order)
 
 
+# ---- the default configuration: the LSTM surrogate ----
+
+def lstm_config(workdir: Path, epochs: int, fint_mode: str = "auto"):
+    """The default Config() (25x1x1 beam, 2 RCB parts, dense, float64,
+    100,000 steps at save_every 1, the stacked LSTM surrogate), with the
+    training cut to ``epochs`` epochs (the published 3,450 with
+    --lstm-epochs 3450)."""
+    from savtpu_torch.config import Config
+
+    cfg = Config()
+    cfg.workdir = str(workdir / "Results")
+    cfg.model_dir = str(workdir / "Distributed_save")
+    cfg.solver.fint_mode = fint_mode
+    cfg.surrogate.num_epochs = epochs
+    return cfg
+
+
+def lstm_windows(S3, seed, P=2, G=295):
+    """Stage-3 inputs at the default run's shapes, made from a seed:
+    (P, G, n_p, S3) and (P, G, n_f, S3) windows in the scaled range
+    [-1, 0], rank 0 a third narrower (ragged widths), and the mask."""
+    import numpy as np
+
+    from savtpu_torch.config import SurrogateConfig
+
+    sur = SurrogateConfig()
+    rng = np.random.default_rng(seed)
+    fm = np.ones((P, S3))
+    fm[0, 2 * S3 // 3 :] = 0.0
+    X = rng.uniform(-1, 0, (P, G, sur.n_past, S3)) * fm[:, None, None, :]
+    Y = rng.uniform(-1, 0, (P, G, sur.n_future, S3)) * fm[:, None, None, :]
+    return X, Y, fm
+
+
+def rel_max(a, b):
+    """max |a - b| over max |b| (numpy or torch)."""
+    import numpy as np
+
+    a, b = (np.asarray(t.detach().cpu() if hasattr(t, "detach") else t,
+                       dtype=np.float64) for t in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def lstm_predict_err(S3, dev, dtype, seed, tf32_on=False):
+    """The stacked LSTM's predict (P = 2, H = 50, 2 bidirectional
+    layers, n_s = 150 windows of n_p = 20 rows, n_f = 20) on the card
+    against the CPU, same parameters and inputs: max |a - b| / max |b|.
+    ``tf32_on`` runs the card's products in TF32 (the control)."""
+    import numpy as np
+    import torch
+
+    from savtpu_torch.models.lstm import StackedSeq2Seq
+
+    model = StackedSeq2Seq(2, S3, 50, dtype=dtype,
+                           generator=torch.Generator().manual_seed(seed))
+    x = torch.as_tensor(np.random.default_rng(seed).uniform(
+        -1, 0, (2, 150, 20, S3)), dtype=dtype)
+    was = torch.backends.cuda.matmul.allow_tf32
+    with torch.no_grad():
+        ref = model.predict(x, 20)
+        model.to(dev)
+        torch.backends.cuda.matmul.allow_tf32 = tf32_on
+        try:
+            out = model.predict(x.to(dev), 20)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = was
+    return rel_max(out, ref)
+
+
+def check_lstm(S3, dev, seed=SEED):
+    """Phase-2 checks of the LSTM surrogate at the default run's shapes:
+    predict on the card against the CPU (float64 within 1e-12, float32
+    within 1e-5), a TF32 control the float32 check must reject, stage 3's
+    own switch back to full-precision products, one float64 epoch of
+    fit_stacked on the card against the CPU (within 1e-10), and the
+    graph-replayed epochs against eager epochs on the card, bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from savtpu_torch.config import SurrogateConfig
+    from savtpu_torch.models.training import fit_stacked
+
+    res = {"predict_f64": lstm_predict_err(S3, dev, torch.float64, seed),
+           "predict_f32": lstm_predict_err(S3, dev, torch.float32, seed),
+           "predict_f32_tf32_control": lstm_predict_err(
+               S3, dev, torch.float32, seed, tf32_on=True),
+           "limits": {"predict_f64": 1e-12, "predict_f32": 1e-5,
+                      "epoch_f64_card_vs_cpu": 1e-10,
+                      "graph_vs_eager": 0.0}}
+    X, Y, fm = lstm_windows(S3, seed)
+
+    def fit(dtype, device, epochs, replay=None):
+        cfg = SurrogateConfig(dtype=dtype, num_epochs=epochs)
+        m, h = fit_stacked(cfg, X, Y, fm, device=device, log_every=0,
+                           replay=replay)
+        return list(m.arrays().values()) + [h[k] for k in sorted(h)]
+
+    # stage 3 switches TF32 off itself: left on here, fit_stacked must
+    # turn it off, and the float32 forward must pass again after it
+    torch.backends.cuda.matmul.allow_tf32 = True
+    fit("float32", dev, 1)
+    res["tf32_off_after_fit"] = not torch.backends.cuda.matmul.allow_tf32
+    res["predict_f32_after_fit"] = lstm_predict_err(S3, dev, torch.float32,
+                                                    seed)
+    card = fit("float64", dev, 1)
+    cpu = fit("float64", "cpu", 1)
+    res["epoch_f64_card_vs_cpu"] = max(rel_max(a, b)
+                                       for a, b in zip(card, cpu))
+    graph = fit("float32", dev, 3, replay=True)
+    eager = fit("float32", dev, 3, replay=False)
+    res["graph_vs_eager"] = max(float(np.abs(a - b).max())
+                                for a, b in zip(graph, eager))
+    lim = res["limits"]
+    res["failures"] = [msg for bad, msg in (
+        (not res["predict_f64"] <= lim["predict_f64"],
+         "float64 predict: card vs CPU beyond 1e-12"),
+        (not res["predict_f32"] <= lim["predict_f32"],
+         "float32 predict: card vs CPU beyond 1e-5"),
+        (res["predict_f32_tf32_control"] <= lim["predict_f32"],
+         "the float32 check does not reject TF32 products"),
+        (not res["tf32_off_after_fit"],
+         "fit_stacked left TF32 products on"),
+        (not res["predict_f32_after_fit"] <= lim["predict_f32"],
+         "float32 predict after fit_stacked beyond 1e-5"),
+        (not res["epoch_f64_card_vs_cpu"] <= lim["epoch_f64_card_vs_cpu"],
+         "one float64 epoch: card vs CPU beyond 1e-10"),
+        (res["graph_vs_eager"] != 0.0,
+         "graph-replayed epochs differ from eager epochs"),
+    ) if bad]
+    return res
+
+
+def compare_runs(cfg, store, steps, save_every):
+    """The sync-avoiding run against the exchanged one, from their
+    artifacts: per-rank and whole non-shared rel-L2 over the comm-free
+    window, and the warm-up rows' largest relative difference and
+    whether they are equal bit for bit."""
+    import numpy as np
+
+    from savtpu_torch.io.artifacts import load_displacement
+
+    n_warm = (cfg.surrogate.i_cri + 1) // save_every
+    err_sq = ref_sq = warm_err = 0.0
+    warm_equal = True
+    per_rank = {}
+    for r in range(cfg.partition.n_parts):
+        exact = load_displacement(store.dynamics_h5(r))
+        model = load_displacement(store.modeled_h5(r))
+        if (exact.shape != model.shape
+                or exact.shape[1] != steps // save_every):
+            raise RuntimeError(f"rank {r}: trajectory shapes {exact.shape}"
+                               f" vs {model.shape}")
+        if not (np.isfinite(exact).all() and np.isfinite(model).all()):
+            raise RuntimeError(f"rank {r}: non-finite trajectory")
+        warm_equal &= bool(np.array_equal(exact[:, :n_warm],
+                                          model[:, :n_warm]))
+        warm_err = max(warm_err, float(
+            np.abs(exact[:, :n_warm] - model[:, :n_warm]).max()
+            / max(np.abs(exact[:, :n_warm]).max(), 1e-30)))
+        local = store.load_int_csv(store.local_nodes_csv(r))
+        shared = set(store.load_int_csv(store.shared_csv(r)).tolist())
+        keep = np.repeat([int(g) not in shared for g in local], 3)
+        d = exact[keep, n_warm:] - model[keep, n_warm:]
+        e2 = float((d * d).sum())
+        r2 = float((exact[keep, n_warm:] ** 2).sum())
+        per_rank[r] = math.sqrt(e2 / max(r2, 1e-300))
+        err_sq += e2
+        ref_sq += r2
+    return (per_rank, math.sqrt(err_sq / max(ref_sq, 1e-300)), warm_err,
+            warm_equal)
+
+
+def stage_events(cfg):
+    """The last metrics.jsonl record of each event."""
+    events = {}
+    for line in (Path(cfg.workdir) / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        events[rec["event"]] = rec
+    return events
+
+
+def run_lstm_path(root: Path, dev, epochs):
+    """Phase 3's default-config run through api.Simulation, then its
+    stage 4 again from a copy of the workdir in fint_mode "pallas", where
+    K1 runs every step. Returns the phase's readings, with "failures"."""
+    import numpy as np
+
+    from savtpu_torch.io.artifacts import ArtifactStore, load_displacement
+    from savtpu_torch.ops.dense_step import batched_fint_matvec
+    from savtpu_torch.pipeline import online_predictor
+
+    cfg = lstm_config(root / "dense", epochs)
+    steps, se = cfg.solver.num_steps, cfg.solver.save_every
+    sim, metrics, times = run_stages(cfg, dev)
+    del sim
+    ev = stage_events(cfg)
+    store = ArtifactStore(cfg.workdir, cfg.model_dir,
+                          cfg.surrogate.run_tag())
+    per_rank, commfree, warm_err, warm_equal = compare_runs(
+        cfg, store, steps, se)
+    s3 = ev["stage3_train_stacked"]
+    res = {
+        "steps": steps, "epochs": epochs,
+        "published_epochs": lstm_config(root, None).surrogate.epochs,
+        "stage_s": times,
+        "setup": ev["setup_breakdown"],
+        "stage1_steps_per_s": ev["stage1_solve"]["steps_per_sec"],
+        "stage3": {k: s3[k] for k in ("shards", "input_size", "windows",
+                                      "epochs", "adam_steps", "seconds",
+                                      "capture_s", "train_s",
+                                      "final_train_loss", "final_val_r2")},
+        "stage3_epochs_per_s": s3["epochs"] / s3["train_s"],
+        "stage3_adam_steps_per_s": s3["adam_steps"] / s3["train_s"],
+        "stage4": {k: ev["stage4_online"][k] for k in (
+            "seconds", "steps_per_sec", "warmup_s", "blocks_s", "blocks")},
+        "plotter_metrics": metrics,
+        "commfree_rel_l2_nonshared": commfree,
+        "commfree_rel_l2_per_rank": per_rank,
+        "warmup_rows_equal": warm_equal,
+        "warmup_rows_max_rel_diff": warm_err,
+    }
+    # K1 on the same path: stage 4 again, from a copy, in pallas mode
+    shutil.copytree(root / "dense", root / "pallas")
+    cfg_k1 = lstm_config(root / "pallas", epochs, fint_mode="pallas")
+    batched_fint_matvec.launches = 0
+    online_predictor.run(cfg_k1, verbose=False, device=dev)
+    k1 = batched_fint_matvec.launches
+    st_k1 = ArtifactStore(cfg_k1.workdir, cfg_k1.model_dir,
+                          cfg_k1.surrogate.run_tag())
+    k1_rel = max(rel_max(load_displacement(st_k1.modeled_h5(r)),
+                         load_displacement(store.modeled_h5(r)))
+                 for r in range(cfg.partition.n_parts))
+    res.update(k1_leg_launches=k1, k1_leg_vs_dense_max_rel=k1_rel,
+               k1_leg_stage4=stage_events(cfg_k1)["stage4_online"][
+                   "seconds"])
+    rel = [metrics["global_rel_l2_nonshared"], commfree, *per_rank.values()]
+    res["failures"] = [msg for bad, msg in (
+        (not all(math.isfinite(x) for x in rel), f"non-finite rel-L2 {rel}"),
+        (not warm_equal, "stage-4 warm-up rows differ from stage 1"),
+        (k1 != steps, f"K1 launched {k1} times in the pallas stage 4, "
+                      f"not once a step ({steps})"),
+        (not k1_rel <= 1e-5, "the pallas stage 4 departs from the dense "
+                             "one beyond 1e-5"),
+    ) if bad]
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def lstm_timing(S3, dev, seed=SEED, eager_epochs=2, replays=20):
+    """Stage 3's epoch at the default shapes (float32, 22 Adam steps of
+    batch 10, then validation): ms per epoch eager and graph-replayed
+    (host clock around synchronized runs), and torch.profiler over one
+    replay (the device's busy share, kernels per epoch: some 60,000
+    events, which the profiler takes tens of seconds to sort per
+    replay); then one stage-4 block's prediction (P = 2 models over a
+    3,000-row window)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from savtpu_torch.config import SurrogateConfig
+    from savtpu_torch.models.training import capture_epoch, stacked_epochs
+    from savtpu_torch.pipeline.online_predictor import modal_predict_stacked
+
+    X, Y, fm = lstm_windows(S3, seed)
+    sur = SurrogateConfig(num_epochs=eager_epochs + replays + 10)
+    ep = stacked_epochs(sur, X, Y, fm, device=dev)
+    ep.load_chunk(0)
+    ep.epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(eager_epochs):
+        ep.epoch()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / eager_epochs
+    graph = capture_epoch(ep)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        graph.replay()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t, _ in rows)
+    rows.sort(key=lambda r: -r[1])
+    res = {
+        "adam_steps_per_epoch": ep.steps,
+        "eager_ms_per_epoch": eager_ms,
+        "replayed_ms_per_epoch": replay_ms,
+        "replayed_us_per_adam_step": replay_ms * 1e3 / ep.steps,
+        "device_busy_share": (busy_us * 1e-6 / wall) if rows
+        else "not measured",
+        "device_ms_per_epoch": (busy_us * 1e-3) if rows
+        else "not measured",
+        "kernels_per_epoch": sum(c for _, _, c in rows) if rows
+        else "not measured",
+        "top_kernels_ms_per_epoch": {k[:60]: t * 1e-3
+                                     for k, t, _ in rows[:5]},
+    }
+    del graph
+    model = ep.model
+    sur = SurrogateConfig()
+    rng = np.random.default_rng(seed)
+    W = sur.n_past * sur.filter_size
+    hist = torch.as_tensor(rng.normal(size=(2, W, S3)) * 1e-3,
+                           dtype=torch.float32).to(dev)
+    mx = torch.full((2,), 2e-3, device=dev)
+    mn = torch.full((2,), -2e-3, device=dev)
+    fmask = torch.as_tensor(fm, dtype=torch.float32).to(dev)
+    modal_predict_stacked(model, hist, mx, mn, sur, None, fmask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        modal_predict_stacked(model, hist, mx, mn, sur, None, fmask)
+    torch.cuda.synchronize()
+    res["block_predict_ms"] = (time.perf_counter() - t0) * 1e3 / 10
+    return res
+
+
 def run_stages(cfg, dev):
     """The five stages through api.Simulation, timed one by one."""
     import torch
@@ -962,6 +1314,9 @@ def main(argv=None) -> int:
                     help="a directory to save the stage-2 traces of the "
                          "slice's departing and median ranks in (for a "
                          "refit on another machine)")
+    ap.add_argument("--lstm-epochs", type=int, default=LSTM_EPOCHS,
+                    help="training epochs of the default-config (LSTM) "
+                         "run in phase 3; 3450 is the published depth")
     ap.add_argument("--dtype", choices=("float32", "float64"),
                     default="float32",
                     help="the slice's state dtype in phase 3 (the "
@@ -1121,6 +1476,15 @@ def main(argv=None) -> int:
             raise RuntimeError(f"graph stepper: {graphs['failures']}")
         del sp48c
 
+        # the LSTM surrogate at the default run's shapes (S3 shared DOF
+        # slots a rank; the 25x1x1 beam's interface plane)
+        S3 = int(build_context(lstm_config(tmp / "lstm_shape", 1),
+                               device=dev).sp.sld.shape[1])
+        lstm_checks = check_lstm(S3, dev)
+        clock.phase(2, "lstm_vs_cpu", S3=S3, **lstm_checks)
+        if lstm_checks["failures"]:
+            raise RuntimeError(f"LSTM: {lstm_checks['failures']}")
+
         # ---- phase 3: the slice through the user's entry points ----
         cfg = slice_config(tmp / "slice", steps, opts.dtype)
         online_chunk.launches = 0
@@ -1222,6 +1586,13 @@ def main(argv=None) -> int:
         if not max(small.values()) <= 1e-12:
             raise RuntimeError(f"small sweep: GPU vs CPU {small}")
 
+        # the default Config(): the LSTM-fed run at 100,000 steps, the
+        # training cut to --lstm-epochs epochs; then its stage 4 on K1
+        lstm_path = run_lstm_path(tmp / "lstm", dev, opts.lstm_epochs)
+        clock.phase(3, "lstm_default_config", **lstm_path)
+        if lstm_path["failures"]:
+            raise RuntimeError(f"LSTM path: {lstm_path['failures']}")
+
         # ---- phase 4: timing ----
         bound_ms, bound_by, nbytes, flops = k3_bound(args, Tc, SAVE_EVERY)
         torch.cuda.reset_peak_memory_stats()
@@ -1253,6 +1624,7 @@ def main(argv=None) -> int:
             clock.phase(4, f"{what}_timing", **res)
         clock.phase(4, "exchanged_stepper_profile",
                     **stepper_profile(ctx.sp, dev, steps=300))
+        clock.phase(4, "lstm_epoch_timing", **lstm_timing(S3, dev))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1280,6 +1652,8 @@ def main(argv=None) -> int:
         "bound_ms": timing[f"{name}_{tag}"]["bound_ms"],
         "bound_by": timing[f"{name}_{tag}"]["bound_by"],
         "library_ms": timing[f"{name}_{tag}"].get("library_ms"),
+        **({"launches_lstm_stage4_pallas": lstm_path["k1_leg_launches"]}
+           if name == "fint_matvec" else {}),
     } for name, source, replaces, tag in (
         ("fint_matvec", "savtpu_torch/csrc/dense_step.cu",
          "savtpu/ops/pallas_step.py:59", "96x8x8_p8"),

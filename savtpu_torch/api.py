@@ -5,7 +5,7 @@
     sim = api.Simulation(cfg)          # CUDA; device="cpu" for the CPU
     sim.generate_data()      # stage 1 (+ steady solve artifact)
     sim.extract_shared()     # stage 2
-    sim.train()              # stage 3 (expfit)
+    sim.train()              # stage 3 (LSTM or expfit)
     sim.run_online()         # stage 4 (sync-avoiding run)
     metrics = sim.compare()  # stage 5 (rel-L2 metrics)
     # or: metrics = sim.run_all()
@@ -51,7 +51,8 @@ class Simulation:
         return self
 
     def train(self):
-        model_training.run(self.cfg, verbose=self.verbose)
+        model_training.run(self.cfg, verbose=self.verbose,
+                           device=self._device)
         return self
 
     def run_online(self):

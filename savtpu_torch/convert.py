@@ -3,6 +3,10 @@
 - :func:`from_savtpu_arrays` takes a savtpu ``ShardedProblem``'s arrays
   and stage-3 expfit params with their sidecars, as numpy arrays and
   dicts, and returns the port's ``ShardedProblem`` and ``RankModel``s.
+- :func:`lstm_arrays_from_savtpu` flattens savtpu's LSTM parameter
+  pytree (one model, or P stacked on a leading axis) into the port's
+  parameter names (``models/lstm.py``), and :func:`lstm_tree_from_arrays`
+  is the reverse.
 - :func:`import_savtpu_run` copies a savtpu run directory's artifacts
   (label CSVs, stage-1/2 trajectories, stage-3 models, the run log) into
   a port ``ArtifactStore``, so any later stage of the port can start from
@@ -26,6 +30,7 @@ from .io.artifacts import (
     save_displacement,
     save_params,
 )
+from .models.lstm import CELL_KEYS
 from .parallel.sharded import ShardedProblem, _owner_table
 from .pipeline.online_predictor import RankModel
 
@@ -51,7 +56,8 @@ def from_savtpu_arrays(
     F_pre, sld, sgi, smask, and denseK (dense and pallas modes) or
     band_Kd/band_Kl (banded mode); pallas arrays are moved from savtpu's
     128-padded layout to the port's (:func:`_unpad_pallas`). ``models``
-    holds one (params, sidecar) pair per rank of the expfit surrogate.
+    holds one (params, sidecar) pair per rank: expfit params, or an LSTM
+    parameter pytree (or its flat arrays) with savtpu's lstm sidecar.
     Returns (ShardedProblem, [RankModel])."""
     missing = [k for k in _SCALARS + ("local_dofs_global",) + _INT_FIELDS
                if k not in sp_arrays]
@@ -87,11 +93,69 @@ def from_savtpu_arrays(
         if meta.get("modal_dim"):
             modal = (np.asarray(meta["modal_mean"], dtype=np.float64),
                      np.asarray(meta["modal_basis"], dtype=np.float64))
+        scale = (None, None)
+        if meta.get("arch", "lstm") == "lstm":
+            params = lstm_arrays_from_savtpu(params)
+            scale = tuple(
+                float(v) if np.ndim(v) == 0 else np.asarray(v, np.float64)
+                for v in (meta["scale_max"], meta["scale_min"]))
         rank_models.append(RankModel(
             {k: np.asarray(v, dtype=np.float64) for k, v in params.items()},
-            int(meta["input_size"]), modal, dict(meta),
+            int(meta["input_size"]), modal, dict(meta), *scale,
         ))
     return sp, rank_models
+
+
+def _items(node):
+    """A pytree list, or flax's msgpack form of one (a dict keyed "0",
+    "1", ...), as an ordered list."""
+    if isinstance(node, dict):
+        return [node[str(i)] for i in range(len(node))]
+    return list(node)
+
+
+def lstm_arrays_from_savtpu(tree) -> Dict[str, np.ndarray]:
+    """savtpu's LSTM parameter pytree (``init_seq2seq``; per shard, or
+    stacked with a leading model axis) -> {port name: array}, the names
+    of ``savtpu_torch/models/lstm.py``. Already-flat input passes through
+    unchanged. The leading axes are kept as they are."""
+    if "decoder.Wi" in tree:
+        return {k: np.asarray(v) for k, v in tree.items()}
+    out = {}
+    for l, layer in enumerate(_items(tree["encoder"])):
+        for d in ("fwd", "bwd"):
+            if d in layer:
+                for k in CELL_KEYS:
+                    out[f"encoder.{l}.{d}.{k}"] = np.asarray(layer[d][k])
+    for k in CELL_KEYS:
+        out[f"decoder.{k}"] = np.asarray(tree["decoder"][k])
+    out["fc.W"] = np.asarray(tree["fc"]["W"])
+    out["fc.b"] = np.asarray(tree["fc"]["b"])
+    if "ginc" in tree:
+        out["ginc"] = np.asarray(tree["ginc"])
+    return out
+
+
+def lstm_tree_from_arrays(arrays: Dict[str, np.ndarray]) -> Dict:
+    """The reverse of :func:`lstm_arrays_from_savtpu`: the port's named
+    arrays -> savtpu's pytree (``{"encoder": [{"fwd": {...}, "bwd":
+    {...}}, ...], "decoder": {...}, "fc": {...}[, "ginc"]}``)."""
+    n_layers = 1 + max(int(k.split(".")[1]) for k in arrays
+                       if k.startswith("encoder."))
+    enc = []
+    for l in range(n_layers):
+        enc.append({d: {k: np.asarray(arrays[f"encoder.{l}.{d}.{k}"])
+                        for k in CELL_KEYS}
+                    for d in ("fwd", "bwd")
+                    if f"encoder.{l}.{d}.Wi" in arrays})
+    tree = {"encoder": enc,
+            "decoder": {k: np.asarray(arrays[f"decoder.{k}"])
+                        for k in CELL_KEYS},
+            "fc": {"W": np.asarray(arrays["fc.W"]),
+                   "b": np.asarray(arrays["fc.b"])}}
+    if "ginc" in arrays:
+        tree["ginc"] = np.asarray(arrays["ginc"])
+    return tree
 
 
 def _unpad_pallas(sp_arrays: Dict) -> Dict:
@@ -159,9 +223,11 @@ def import_savtpu_run(
     Stage 1: label CSVs, the steady VTK, Dynamics/Local-rank-<r> and the
     run log (metrics.jsonl, where stage 3 reads the stage-1 dt). Stage 2:
     sol_on_shared/rank=<r>-shared_dof. Stage 3: each rank's model and
-    sidecar, with ``read_params(msgpack_path, sidecar) -> {name: array}``
-    reading savtpu's flax msgpack (savtpu's sidecar tag directory is
-    ``store.tag``)."""
+    sidecar, with ``read_params(msgpack_path, sidecar)`` reading savtpu's
+    flax msgpack into {name: array} (expfit) or the LSTM's pytree, which
+    is stored under the port's names (savtpu's sidecar tag directory is
+    ``store.tag``). The port's stage 3 or stage 4 then continues the
+    run."""
     src = Path(src_workdir)
     src_models = Path(src_model_dir)
     stages = set(stages)
@@ -195,6 +261,9 @@ def import_savtpu_run(
                 raise FileNotFoundError(
                     f"{mf}: flax msgpack params need a read_params callable"
                 )
-            params = {k: np.asarray(v)
-                      for k, v in read_params(mf, meta).items()}
-            save_params(store.model_file(r), params, meta=meta)
+            params = read_params(mf, meta)
+            if meta.get("arch", "lstm") == "lstm":
+                params = lstm_arrays_from_savtpu(params)
+            save_params(store.model_file(r),
+                        {k: np.asarray(v) for k, v in params.items()},
+                        meta=meta)

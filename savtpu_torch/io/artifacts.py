@@ -8,13 +8,19 @@ as the JAX package, so stages stay filesystem-connected and restartable.
     {workdir}/Dynamics/Local-rank-<r>.npz
     {workdir}/sol_on_shared/rank=<r>-shared_dof.npz
     {model_dir}/Rank-<r>/<tag>/{model.npz, model.json}
+    {model_dir}/Rank-<r>/<tag>/{train,test}_loss.csv, *_acc_{r2,rel}.csv
     {workdir}/Dynamics/Modeled_Local-rank-<r>.npz
 
 Trajectories are ``.npz`` files with a 'Displacement' array of shape
 (3*n_local, T) — the JAX package's own branch for a host without h5py.
 Parameters are an ``.npz`` of named arrays beside the same JSON
 architecture/scaling sidecar the JAX package writes next to its flax
-msgpack (``convert.py`` carries those over).
+msgpack (``convert.py`` carries those over). An LSTM's ``model.npz``
+holds one array per leaf of the JAX package's parameter pytree, named by
+its path with dots: ``encoder.<l>.fwd.Wi`` ... ``encoder.<l>.bwd.bh``,
+``decoder.{Wi,Wh,bi,bh}``, ``fc.W``, ``fc.b`` and, for
+target_mode="increment", ``ginc`` (``models/lstm.py``). An expfit's holds
+its fit's arrays under their own names.
 """
 
 from __future__ import annotations
@@ -111,3 +117,43 @@ class ArtifactStore:
         return np.atleast_1d(
             np.genfromtxt(path, delimiter=",").astype(np.int64)
         )
+
+    def save_training_curves(self, r: int, hist: Dict) -> None:
+        """CSV (and, where matplotlib is installed, PNG) training curves
+        (Model_training.py:143-175), under the JAX package's file names."""
+        d = self.model_run_dir(r)
+        d.mkdir(parents=True, exist_ok=True)
+        names = {
+            "train_loss": "train_loss.csv",
+            "val_loss": "test_loss.csv",
+            "train_r2": "train_acc_r2.csv",
+            "val_r2": "test_acc_r2.csv",
+            "train_rel": "train_acc_rel.csv",
+            "val_rel": "test_acc_rel.csv",
+        }
+        for key, fname in names.items():
+            if hist.get(key):
+                np.savetxt(d / fname, np.asarray(hist[key]), delimiter=",")
+        try:
+            import matplotlib
+        except ImportError:
+            return
+        matplotlib.use("Agg")
+        from matplotlib import pyplot as plt
+
+        fig = plt.figure(figsize=(16, 8))
+        plt.subplot(1, 2, 1)
+        plt.semilogy(hist["train_loss"], label="train")
+        if hist.get("val_loss"):
+            plt.semilogy(hist["val_loss"], label="test")
+        plt.xlabel("epoch")
+        plt.legend()
+        plt.subplot(1, 2, 2)
+        for key, lbl in [("train_r2", "train:R2"), ("val_r2", "test:R2"),
+                         ("train_rel", "train:Rel"), ("val_rel", "test:Rel")]:
+            if hist.get(key):
+                plt.plot(hist[key], label=lbl)
+        plt.xlabel("epoch")
+        plt.legend()
+        fig.savefig(d / "train-test-loss-acc.png")
+        plt.close(fig)

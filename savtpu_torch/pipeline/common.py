@@ -16,7 +16,7 @@ from ..parallel.halo import PartitionMaps, build_partition_maps
 from ..parallel.partition import partition_elements
 from ..parallel.sharded import ShardedProblem, ShardedSolver
 from ..solvers.problem import AssembledProblem, setup_problem
-from ..utils import resolve_device, stage_log
+from ..utils import full_precision_products, resolve_device, stage_log
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -86,9 +86,7 @@ def build_context(cfg: Config, mesh=None, dtype=None,
     for float32."""
     dev = resolve_device(device)
     dtype = state_dtype(cfg, dtype)
-    # FEM matvecs cancel heavily: float32 products stay full float32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_precision_products()
     if cfg.solver.deg != 1:
         raise NotImplementedError("the dynamic pipeline is P1-only")
     tmarks = {}

@@ -26,7 +26,7 @@ def run(cfg: Config, verbose: bool = True, device=None, dtype=None):
     ctx = build_context(cfg, dtype=dtype, device=device)
     data_prepare.run(cfg, ctx=ctx, verbose=verbose)
     shared_extraction.run(cfg)
-    model_training.run(cfg, verbose=verbose)
+    model_training.run(cfg, verbose=verbose, device=ctx.device)
     online_predictor.run(cfg, ctx=ctx, verbose=verbose)
     return plotter.run(cfg, verbose=verbose)
 

@@ -42,6 +42,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def full_precision_products() -> None:
+    """Keep float32 products in full float32 on the card: no TF32 in
+    matmuls or cuDNN. The JAX package computes them at HIGHEST precision;
+    FEM matvecs cancel heavily and the LSTM's recursive decode feeds its
+    products back. Every stage that multiplies on the device, and
+    ``fit_stacked``, passes through here."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":

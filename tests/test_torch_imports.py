@@ -1,5 +1,6 @@
-"""savtpu_torch and chip_smoke.py import, and the port's pipeline and
-its ``--quick`` sweep run on the CPU, with every package the card's
+"""savtpu_torch and chip_smoke.py import, and the port's pipeline (with
+the expfit surrogate and with the default LSTM) and its ``--quick`` sweep
+run on the CPU, with every package the card's
 machine lacks blocked: JAX, flax, optax, h5py, meshio, matplotlib, and
 savtpu itself. Runs in a subprocess whose import system refuses those
 names."""
@@ -44,6 +45,9 @@ SCRIPT = textwrap.dedent(
     ]
     for name in names:
         importlib.import_module(name)
+    for name in ("models.data", "models.lstm", "models.predictor",
+                 "models.training"):
+        assert "savtpu_torch." + name in names, name
     import chip_smoke  # noqa: F401  (imported, not run)
 
     from savtpu_torch.config import Config
@@ -63,6 +67,22 @@ SCRIPT = textwrap.dedent(
     s.arch = "expfit"
     s.modal_dim = 3
     s.expfit_order = 8
+    metrics = run_all.run(cfg, verbose=False, device="cpu")
+    assert metrics["global_rel_l2_nonshared"] == metrics[
+        "global_rel_l2_nonshared"]
+
+    # the default surrogate (arch="lstm", stacked) through all five stages
+    cfg = Config()
+    cfg.workdir = {workdir!r} + "/lstm/Results"
+    cfg.model_dir = {workdir!r} + "/lstm/Distributed_save"
+    cfg.beam_cells = (6, 1, 1)
+    cfg.beam_extent = (6.0, 1.0, 1.0)
+    cfg.partition.n_parts = 2
+    cfg.solver.num_steps = 90
+    s = cfg.surrogate
+    assert s.arch == "lstm"
+    s.n_past, s.n_future, s.filter_size = 4, 4, 5
+    s.batch_size, s.num_epochs, s.hidden_size = 2, 3, 8
     metrics = run_all.run(cfg, verbose=False, device="cpu")
     assert metrics["global_rel_l2_nonshared"] == metrics[
         "global_rel_l2_nonshared"]
