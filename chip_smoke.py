@@ -2,14 +2,19 @@
 """Drive savtpu_torch's main path on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py [--steps N] [--dtype float32|float64]
-                          [--lstm-epochs E]
+                          [--lstm-epochs E] [--nh-steps N]
+                          [--surrogate-epochs E]
 
 ``--steps`` sets the slice's depth (default 9,000; 100,000 is the
 published schedule); ``--dtype`` its state dtype in phase 3 (default
 float32, as published; float64, also compensated so that it runs the
 same kernel, separates round-off from the rest). ``--lstm-epochs`` sets
-the default configuration's training depth (default 1,500, cut from the
-published 3,450 to keep the script within about 450 s).
+the default configuration's training depth (default 300, cut from the
+published 3,450 to keep the script within about 520 s);
+``--nh-steps`` nh_box_96's depth (default 50,000, the least that lets
+expfit fit past the load ramp with margin; 100,000 published) and
+``--surrogate-epochs`` the training epochs of the surrogate legs
+(default 100).
 
 Phases, each reported with its seconds and the running total against a
 600 s budget:
@@ -39,6 +44,14 @@ Phases, each reported with its seconds and the running total against a
    TF32 control the float32 check must reject), stage 3 switching TF32
    off itself, one float64 training epoch card against CPU (1e-10), and
    graph-replayed epochs against eager ones, bit for bit; then the
+   surrogate slice (``surrogates_vs_cpu``), card against CPU: the
+   hybrid's block (expfit base + residual LSTM) at nh_box_96's widths,
+   the ridge map's predict and a seed ensemble's averaged block at the
+   default run's (float64 within 1e-12, float32 within 1e-5; controls:
+   no base, float32 or TF32 products, member 0 alone), one float64
+   per-rank epoch with mixed teacher forcing and dropout from injected
+   draws (1e-10; control: other draws), and replayed per-rank epochs
+   against eager ones, bit for bit (control: another seed); then the
    structured-box slice in float64: the Neo-Hookean stencil force on the
    card against the incident-list force on the CPU at 8x4x4/16 and
    96x8x8/16 (strain near 1e-2; control: the linear stencil force), a
@@ -62,13 +75,21 @@ Phases, each reported with its seconds and the running total against a
    and Adam steps/s, the rel-L2, the warm-up rows equal to stage 1's bit
    for bit; and its stage 4 again from a copy in fint_mode "pallas",
    where K1 must launch once a step and the result stay within 1e-5 of
-   the dense run; and nh_box_96 (96x8x8, 16 box parts, Neo-Hookean on
-   the stencil, the grid exchange, float32 compensated, expfit modal-8,
-   9,000 steps) through the same stages: stage seconds and stepping
-   rates, the built problem's mode, stencil dims and exchange, warm-up
-   rows equal to stage 1's bit for bit, the rel-L2 globally and per rank,
-   and K1-K4's launch counts unchanged by it; then the sweep's
-   Neo-Hookean row through ``bench_case``;
+   the dense run; then stages 3-5 on its stage 1-2 artifacts again with
+   the linear surrogate, a seed ensemble of 2 and per-rank LSTMs with
+   mixed teacher forcing and dropout (``default_config_*``: stage
+   seconds, epochs/s, ridge lambdas, rel-L2, warm-up rows bit for bit);
+   and nh_box_96 (96x8x8, 16 box parts, Neo-Hookean on the stencil, the
+   grid exchange, float32 compensated, expfit order 16 modal 16 on the
+   first 75% of 50,000 steps) through the same stages: stage seconds and
+   stepping rates, the built problem's mode, stencil dims and exchange,
+   every rank's expfit past the load ramp (not the frozen-ramp
+   fallback), warm-up rows equal to stage 1's bit for bit, the rel-L2
+   globally and per rank; then stages 3-5 of it again with the hybrid
+   (``nh_box_96_hybrid``: the residual LSTMs at full width, residual over
+   signal per rank, epochs/s, the rel-L2 beside expfit's); no path may
+   launch K1-K4; then the sweep's Neo-Hookean row through
+   ``bench_case``;
 4. kernel timing with CUDA events: kernel, plain version, bound (and for
    K2, K3 and K4 the floor of re-reading the operator from HBM every
    step), the plan K3 and K4 ran with, the PyTorch call that computes
@@ -110,9 +131,16 @@ SEED = 1234
 STEPS = 9000
 SAVE_EVERY = 50
 # the default-config run's training depth: cut from the published 3,450
-# epochs so that the script stays within about 450 s (PERF.md);
-# --lstm-epochs 3450 runs it in full
-LSTM_EPOCHS = 1500
+# epochs so that the script, with the surrogate legs, stays within about
+# 520 s (PERF.md); --lstm-epochs 3450 runs it in full
+LSTM_EPOCHS = 300
+# nh_box_96's depth: 0.75 x 50,000 steps clears the 1 s load ramp (step
+# 22,825 at its dt of 4.38e-5 s) by 293 stored rows, so that stage 3 fits
+# expfit's post-ramp segment (the published depth is 100,000)
+NH_STEPS = 50_000
+# training epochs of the surrogate legs (the hybrid's residual LSTMs,
+# the seed ensemble, the per-rank LSTMs), cut from the published 3,450
+SURROGATE_EPOCHS = 100
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s off the
 # tensor cores
 PEAK_BYTES = 3.35e12
@@ -1108,6 +1136,205 @@ def check_lstm(S3, dev, seed=SEED):
     return res
 
 
+def seeded_draws(seed, sizes, n_train, n_past, n_future, H2, L, p_enc,
+                 p_dec):
+    """Per-epoch shuffles, coins and keep masks for one per-rank model,
+    made from a seed with numpy: ``fit``'s injected draws, the same on
+    the card and on the CPU."""
+    import numpy as np
+
+    def draws(e):
+        rng = np.random.default_rng([seed, e])
+        out = {"perm": rng.permutation(n_train)[None], "coins": [],
+               "enc": [], "dec": []}
+        for B in sizes:
+            out["coins"].append(rng.uniform(size=(1, n_future)))
+            out["enc"].append(rng.uniform(size=(L - 1, n_past, 1, B, H2))
+                              < 1.0 - p_enc)
+            out["dec"].append(rng.uniform(size=(n_future, 1, B, H2))
+                              < 1.0 - p_dec)
+        return out
+
+    return draws
+
+
+def check_surrogates(S3, S3_slice, dev, seed=SEED):
+    """Phase-2 checks of the surrogate slice, each on the card against
+    the CPU with the same inputs (made from a seed), each with a control
+    the same comparison must reject:
+    - the hybrid's block (expfit base + residual LSTM, ``hybrid_block``)
+      at nh_box_96's widths (P = 16, 16 modes, H 50, n_s = 150 windows,
+      the 96x8x8/16 slice's shared width): float64 within 1e-12, float32
+      within 1e-5; control: the block without its base;
+    - the ridge map's predict (``StackedLinear``, the default run's
+      P = 2 and width): 1e-12 / 1e-5; control: the float64 map's product
+      in float32, the float32 map's in TF32;
+    - a seed ensemble's averaged block (``modal_predict_stacked`` with
+      ens = 2): 1e-12 / 1e-5; control: member 0 alone;
+    - one float64 per-rank epoch with mixed teacher forcing and dropout,
+      with injected draws (``fit``): 1e-10; control: other draws on the
+      CPU;
+    - per-rank epochs replayed from a CUDA graph against eager ones on
+      the card, bit for bit; control: another seed's eager epochs."""
+    import numpy as np
+    import torch
+
+    from savtpu_torch.config import SurrogateConfig
+    from savtpu_torch.models.data import train_val_split
+    from savtpu_torch.models.linear import StackedLinear
+    from savtpu_torch.models.lstm import StackedSeq2Seq
+    from savtpu_torch.models.training import fit, rank_epochs
+    from savtpu_torch.pipeline.online_predictor import (
+        hybrid_block,
+        modal_predict_stacked,
+        modal_reconstruct,
+    )
+
+    sur = SurrogateConfig()
+    W = sur.n_past * sur.filter_size
+    T = sur.n_future * sur.filter_size
+    lim = {torch.float64: 1e-12, torch.float32: 1e-5}
+    res = {"limits": {"float64": 1e-12, "float32": 1e-5,
+                      "per_rank_epoch_f64": 1e-10, "graph_vs_eager": 0.0}}
+
+    def on(dev_, *ts):
+        return [t.to(dev_) if torch.is_tensor(t) else t for t in ts]
+
+    # the hybrid block at nh_box_96's widths
+    P, K = 16, 16
+    rng = np.random.default_rng(seed)
+    basis = np.stack([np.linalg.qr(rng.normal(size=(S3_slice, K)))[0].T
+                      for _ in range(P)])
+    mu = rng.normal(size=(P, S3_slice)) * 1e-3
+    coefs = rng.normal(size=(P, T, K)) * 1e-3
+    hist = rng.normal(size=(P, W, S3_slice)) * 1e-5
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[1]
+        net = StackedSeq2Seq(P, K, 50, dtype=dtype,
+                             generator=torch.Generator().manual_seed(seed))
+        t = lambda a: torch.as_tensor(a, dtype=dtype)  # noqa: E731
+        modal = (t(mu), t(basis), torch.ones((P, K), dtype=dtype))
+        fmask = torch.ones((P, S3_slice), dtype=dtype)
+        mx, mn = t(np.full(P, 2e-5)), t(np.full(P, -2e-5))
+        outs = {}
+        for where in ("cpu", dev):
+            m = net.to(where)
+            md = tuple(a.to(where) for a in modal)
+            fm, h, c, x, y = on(where, fmask, t(hist), t(coefs), mx, mn)
+            base = modal_reconstruct(c, md, fm)
+            outs[str(where)] = (hybrid_block(m, h, x, y, sur, md, fm, base),
+                                base)
+        full_cpu = outs["cpu"][0]
+        full_card, base_card = outs[str(dev)]
+        res[f"hybrid_block_{tag}"] = rel_max(full_card, full_cpu)
+        res[f"hybrid_block_{tag}_control_no_base"] = rel_max(
+            full_card - base_card, full_cpu)
+    # the ridge map at the default run's widths
+    P = 2
+    was = torch.backends.cuda.matmul.allow_tf32
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[1]
+        W_ = rng.normal(size=(P, sur.n_past * S3, sur.n_future * S3))
+        arrays = {"lin.W": W_ / np.sqrt(W_.shape[1]),
+                  "lin.b": rng.normal(size=(P, sur.n_future * S3)) * 1e-2}
+        x = torch.as_tensor(rng.uniform(-1, 0, (P, sur.filter_size,
+                                               sur.n_past, S3)), dtype=dtype)
+        lin = StackedLinear.from_arrays(arrays, sur.n_past, dtype=dtype)
+        with torch.no_grad():
+            ref = lin.predict(x, sur.n_future)
+            lin = lin.to(dev)
+            got = lin.predict(x.to(dev), sur.n_future)
+            if dtype == torch.float64:
+                # control: the product in float32
+                ctl = lin.to(torch.float32).predict(
+                    x.to(dev, torch.float32), sur.n_future)
+            else:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    ctl = lin.predict(x.to(dev), sur.n_future)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = was
+        ctl_name = "float32" if dtype == torch.float64 else "tf32"
+        res[f"linear_predict_{tag}"] = rel_max(got, ref)
+        res[f"linear_predict_{tag}_control_{ctl_name}"] = rel_max(ctl, ref)
+    # a seed ensemble of 2 at the default run's widths
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[1]
+        net = StackedSeq2Seq(2 * P, S3, 50, dtype=dtype,
+                             generator=torch.Generator().manual_seed(seed))
+        h = torch.as_tensor(rng.normal(size=(P, W, S3)) * 1e-3, dtype=dtype)
+        mx = torch.full((P,), 2e-3, dtype=dtype)
+        mn = torch.full((P,), -2e-3, dtype=dtype)
+        fm = torch.ones((P, S3), dtype=dtype)
+        ref = modal_predict_stacked(net, h, mx, mn, sur, None, fm, ens=2)
+        net = net.to(dev)
+        h, mx, mn, fm = on(dev, h, mx, mn, fm)
+        got = modal_predict_stacked(net, h, mx, mn, sur, None, fm, ens=2)
+        one = StackedSeq2Seq.from_arrays(
+            {k: v[:P] for k, v in net.arrays().items()}, dtype=dtype,
+            device=dev)
+        ctl = modal_predict_stacked(one, h, mx, mn, sur, None, fm)
+        res[f"ensemble_predict_{tag}"] = rel_max(got, ref)
+        res[f"ensemble_predict_{tag}_control_member0"] = rel_max(ctl, ref)
+    # per-rank epochs with mixed teacher forcing and dropout
+    X, Y, _ = lstm_windows(S3, seed, P=1)
+    tr, va = train_val_split(X.shape[1], sur.train_portion,
+                             np.random.default_rng(seed))
+    data = (X[0][tr], Y[0][tr], X[0][va], Y[0][va])
+    cfg = SurrogateConfig(dtype="float64", num_epochs=1,
+                          training_method="mtf", dropout_encoder=0.1,
+                          dropout_decoder=0.1)
+    sizes = rank_epochs(cfg, *data, device="cpu").batch_sizes()
+    draws = [seeded_draws(seed + k, sizes, len(tr), sur.n_past,
+                          sur.n_future, 2 * sur.hidden_size,
+                          sur.num_layers_encoder, 0.1, 0.1)
+             for k in (0, 1)]
+
+    def run_fit(c, device, d=None, replay=None):
+        m, h = fit(c, *data, device=device, log_every=0, draws=d,
+                   replay=replay)
+        return list(m.arrays().values()) + [np.asarray(h[k])
+                                            for k in sorted(h)]
+
+    card = run_fit(cfg, dev, draws[0])
+    cpu = run_fit(cfg, "cpu", draws[0])
+    ctl = run_fit(cfg, "cpu", draws[1])
+    res["per_rank_epoch_f64"] = max(rel_max(a, b) for a, b in zip(card, cpu))
+    res["per_rank_epoch_f64_control_other_draws"] = max(
+        rel_max(a, b) for a, b in zip(card, ctl))
+    cfg32 = SurrogateConfig(num_epochs=3, training_method="mtf",
+                            dropout_encoder=0.1, dropout_decoder=0.1)
+    graph = run_fit(cfg32, dev, replay=True)
+    eager = run_fit(cfg32, dev, replay=False)
+    other = run_fit(SurrogateConfig(num_epochs=3, training_method="mtf",
+                                    dropout_encoder=0.1, dropout_decoder=0.1,
+                                    seed=1), dev, replay=False)
+    res["per_rank_graph_vs_eager"] = max(float(np.abs(a - b).max())
+                                         for a, b in zip(graph, eager))
+    res["per_rank_graph_vs_eager_control_seed"] = max(
+        float(np.abs(a - b).max()) for a, b in zip(graph, other))
+    checks = [(f"{name}_{tag}", lim[dt])
+              for name in ("hybrid_block", "linear_predict",
+                           "ensemble_predict")
+              for tag, dt in (("float64", torch.float64),
+                              ("float32", torch.float32))]
+    checks += [("per_rank_epoch_f64", 1e-10)]
+    fails = []
+    for name, limit in checks:
+        ctl_key = next(k for k in res if k.startswith(name + "_control"))
+        if not res[name] <= limit:
+            fails.append(f"{name}: card vs CPU {res[name]:.3e} beyond "
+                         f"{limit}")
+        if res[ctl_key] <= limit:
+            fails.append(f"{ctl_key} {res[ctl_key]:.3e} is not rejected")
+    if res["per_rank_graph_vs_eager"] != 0.0:
+        fails.append("per-rank graph-replayed epochs differ from eager ones")
+    if res["per_rank_graph_vs_eager_control_seed"] == 0.0:
+        fails.append("the graph-vs-eager check does not reject another seed")
+    res["failures"] = fails
+    return res
+
+
 def compare_runs(cfg, store, steps, save_every):
     """The sync-avoiding run against the exchanged one, from their
     artifacts: per-rank and whole non-shared rel-L2 over the comm-free
@@ -1157,10 +1384,12 @@ def stage_events(cfg):
     return events
 
 
-def run_lstm_path(root: Path, dev, epochs):
+def run_lstm_path(root: Path, dev, epochs, leg_epochs):
     """Phase 3's default-config run through api.Simulation, then its
     stage 4 again from a copy of the workdir in fint_mode "pallas", where
-    K1 runs every step. Returns the phase's readings, with "failures"."""
+    K1 runs every step, then the surrogate legs on its stage 1-2
+    artifacts (:func:`run_surrogate_legs`). Returns the phase's readings
+    and the legs', each with "failures"."""
     import numpy as np
 
     from savtpu_torch.io.artifacts import ArtifactStore, load_displacement
@@ -1220,8 +1449,9 @@ def run_lstm_path(root: Path, dev, epochs):
         (not k1_rel <= 1e-5, "the pallas stage 4 departs from the dense "
                              "one beyond 1e-5"),
     ) if bad]
+    legs = run_surrogate_legs(root / "dense", dev, leg_epochs)
     shutil.rmtree(root, ignore_errors=True)
-    return res
+    return res, legs
 
 
 def lstm_timing(S3, dev, seed=SEED, eager_epochs=2, replays=20):
@@ -1314,17 +1544,27 @@ NH_MAT = dict(E=1e6, nu=0.3, rho=1.0, fz=0.5)
 BOX_TOL = 1e-12
 
 
-def nh_box_config(workdir: Path, steps: int = STEPS):
+def nh_box_config(workdir: Path, steps: int = NH_STEPS,
+                  arch: str = "expfit", epochs: int = SURROGATE_EPOCHS):
     """nh_box_96: ``scripts/scale_demo.py --cells 96 8 8 --parts 16
-    --material neo_hookean --pmethod box --exchange grid --arch expfit
-    --modal 8 --no-consensus`` (the plant of scripts/queue_r4g.sh:14-16
-    at 96x8x8/16, with the slice's surrogate): box parts of 6x8x8 cells,
-    Neo-Hookean forces on the stencil, the grid exchange, float32
-    compensated, save_every 50; cut in depth only."""
+    --material neo_hookean --pmethod box --exchange grid --arch <arch>
+    --order 16 --modal 16 --no-consensus --cutoff 0.75``, the plant and
+    surrogate flags of scripts/queue_r4g.sh:14-16 at 96x8x8/16: box parts
+    of 6x8x8 cells, Neo-Hookean forces on the stencil, the grid exchange,
+    float32 compensated, save_every 50; expfit, or the hybrid (that
+    expfit base and the residual LSTM at full width: H 50, 2
+    bidirectional layers, n_p = n_f = 20, n_s = 150). Cut in depth
+    (``steps``) and, for the hybrid, in training epochs only."""
     cfg = slice_config(workdir, steps)
     cfg.material.model = "neo_hookean"
     cfg.partition.method = "box"
     cfg.solver.exchange_mode = "grid"
+    s = cfg.surrogate
+    s.arch = arch
+    s.expfit_order = 16
+    s.modal_dim = 16
+    s.cut_off = 0.75
+    s.num_epochs = epochs
     return cfg
 
 
@@ -1524,77 +1764,215 @@ def linear_kernel_launches():
         scan_comm_free_banded)}
 
 
-def run_nh_box_path(root: Path, dev, steps):
-    """Phase 3's nh_box_96 run through api.Simulation's stages, then the
-    sweep's Neo-Hookean case through ``bench_case``. Neither may launch
-    K1-K4. Returns (the readings with "failures", the problem for phase
-    4's profile)."""
-    from savtpu_torch.benchmarks import sweep
+def zero_kernel_launches():
+    """Set the launch counts of K1-K4 to 0."""
+    from savtpu_torch.ops.banded_scan import scan_comm_free_banded
+    from savtpu_torch.ops.dense_step import (
+        batched_fint_matvec,
+        scan_comm_free,
+    )
+    from savtpu_torch.ops.online_banded import online_chunk
+
+    for fn in (batched_fint_matvec, scan_comm_free, online_chunk,
+               scan_comm_free_banded):
+        fn.launches = 0
+
+
+def sidecars(cfg):
+    """Each rank's stage-3 sidecar."""
     from savtpu_torch.io.artifacts import ArtifactStore
 
-    cfg = nh_box_config(root / "nh_box_96", steps)
-    before = linear_kernel_launches()
-    sim, metrics, times = run_stages(cfg, dev)
-    sp = sim.ctx.sp
-    after = linear_kernel_launches()
-    del sim
-    ev = stage_events(cfg)
+    st = ArtifactStore(cfg.workdir, cfg.model_dir, cfg.surrogate.run_tag())
+    return [json.loads(st.model_file(r).with_suffix(".json").read_text())
+            for r in range(cfg.partition.n_parts)]
+
+
+def path_readings(cfg, metrics, times, steps, save_every):
+    """The readings every pipeline path reports: stage seconds, stage
+    4's rate, the rel-L2 globally, over the comm-free window and per
+    rank, and whether the warm-up rows equal stage 1's bit for bit."""
+    from savtpu_torch.io.artifacts import ArtifactStore
+
     store = ArtifactStore(cfg.workdir, cfg.model_dir,
                           cfg.surrogate.run_tag())
     per_rank, commfree, warm_err, warm_equal = compare_runs(
-        cfg, store, steps, SAVE_EVERY)
-    res = {
-        "steps": steps, "stage_s": times,
-        "stage1_steps_per_s": ev["stage1_solve"]["steps_per_sec"],
-        "stage4_steps_per_s": ev["stage4_online"]["steps_per_sec"],
-        "setup": ev["setup_breakdown"],
-        "fint_mode": sp.fint_mode, "nhs_dims": sp.nhs_dims,
-        "exchange_mode": sp.exchange_mode, "grid_pdims": sp.grid_pdims,
-        "DL": sp.DL,
+        cfg, store, steps, save_every)
+    s4 = stage_events(cfg)["stage4_online"]
+    return {
+        "stage_s": times,
+        "stage4": {k: s4[k] for k in ("seconds", "steps_per_sec",
+                                      "blocks_s", "stacked_predictor",
+                                      "arch", "ensemble")},
         "plotter_metrics": metrics,
+        "global_rel_l2_nonshared": metrics["global_rel_l2_nonshared"],
         "commfree_rel_l2_nonshared": commfree,
         "commfree_rel_l2_per_rank": per_rank,
         "warmup_rows_equal": warm_equal,
         "warmup_rows_max_rel_diff": warm_err,
-        "k1_k4_launches_before": before, "k1_k4_launches_after": after,
     }
-    shutil.rmtree(root / "nh_box_96", ignore_errors=True)
-    # the sweep's Neo-Hookean row
-    case = next(c for c in sweep.CASES if len(c) > 8 and c[8])
-    before_row = linear_kernel_launches()
-    t0 = time.perf_counter()
-    row = sweep.bench_case(*case, device=dev)
-    row.update(steps=case[5], case_s=time.perf_counter() - t0)
-    res["sweep_nh_row"] = row
-    rel = [metrics["global_rel_l2_nonshared"], commfree, *per_rank.values()]
-    res["failures"] = [msg for bad, msg in (
+
+
+def path_failures(res, launches):
+    rel = [res["global_rel_l2_nonshared"], res["commfree_rel_l2_nonshared"],
+           *res["commfree_rel_l2_per_rank"].values()]
+    return [msg for bad, msg in (
+        (not all(math.isfinite(x) for x in rel), f"non-finite rel-L2 {rel}"),
+        (not res["warmup_rows_equal"],
+         "stage-4 warm-up rows differ from stage 1"),
+        (any(launches.values()),
+         f"the path launched a linear kernel: {launches}"),
+    ) if bad]
+
+
+def run_nh_box_path(root: Path, dev, steps):
+    """Phase 3's nh_box_96 run through api.Simulation's stages with the
+    expfit surrogate, then stages 3-5 again with the hybrid on the same
+    stage 1-2 artifacts (scripts/rerun_online.py's way), then the sweep's
+    Neo-Hookean case through ``bench_case``. None may launch K1-K4 (as
+    in savtpu, no Pallas kernel lies on this path). Returns (the expfit
+    readings, the hybrid's, each with "failures", and the problem for
+    phase 4's profile)."""
+    from savtpu_torch.benchmarks import sweep
+
+    cfg = nh_box_config(root / "nh_box_96", steps)
+    zero_kernel_launches()
+    sim, metrics, times = run_stages(cfg, dev)
+    launches = linear_kernel_launches()
+    sp = sim.ctx.sp
+    del sim
+    ev = stage_events(cfg)
+    res = {
+        "steps": steps,
+        "stage1_steps_per_s": ev["stage1_solve"]["steps_per_sec"],
+        "setup": ev["setup_breakdown"],
+        "fint_mode": sp.fint_mode, "nhs_dims": sp.nhs_dims,
+        "exchange_mode": sp.exchange_mode, "grid_pdims": sp.grid_pdims,
+        "DL": sp.DL,
+        **path_readings(cfg, metrics, times, steps, SAVE_EVERY),
+        "expfit_has_post_segment": [m["expfit_has_post_segment"]
+                                    for m in sidecars(cfg)],
+        "k1_k4_launches": launches,
+    }
+    res["failures"] = path_failures(res, launches) + [msg for bad, msg in (
         (sp.fint_mode != "nh" or sp.nhs_dims is None,
          f"the problem is {sp.fint_mode!r} with stencil dims "
          f"{sp.nhs_dims}, not the Neo-Hookean stencil"),
         (sp.exchange_mode != "grid", "the exchange is not the grid's"),
-        (not all(math.isfinite(x) for x in rel), f"non-finite rel-L2 {rel}"),
-        (not warm_equal, "stage-4 warm-up rows differ from stage 1"),
-        (after != before or linear_kernel_launches() != before_row,
-         "the Neo-Hookean path launched a linear kernel (K1-K4)"),
+        (not all(res["expfit_has_post_segment"]),
+         "expfit took its frozen-ramp fallback"),
+    ) if bad]
+
+    # the hybrid: stages 3-5 on the same stage 1-2 artifacts
+    cfg_h = nh_box_config(root / "nh_box_96", steps, arch="hybrid")
+    zero_kernel_launches()
+    sim, metrics_h, times_h = run_stages(cfg_h, dev, first=3)
+    launches_h = linear_kernel_launches()
+    del sim
+    s3 = stage_events(cfg_h)["stage3_train_hybrid"]
+    hyb = {
+        "steps": steps,
+        **path_readings(cfg_h, metrics_h, times_h, steps, SAVE_EVERY),
+        "stage3": {k: s3[k] for k in (
+            "shards", "input_size", "windows", "epochs", "seconds",
+            "adam_steps", "capture_s", "train_s", "final_train_loss",
+            "final_val_r2")},
+        "stage3_epochs_per_s": s3["epochs"] / s3["train_s"],
+        "residual_over_signal_per_rank": s3["residual_rel"],
+        "expfit_has_post_segment": s3["expfit_has_post_segment"],
+        "expfit_global_rel_l2_nonshared": res["global_rel_l2_nonshared"],
+        "expfit_commfree_rel_l2_per_rank": res["commfree_rel_l2_per_rank"],
+        "k1_k4_launches": launches_h,
+    }
+    hyb["failures"] = path_failures(hyb, launches_h) + [msg for bad, msg in (
+        (not all(hyb["expfit_has_post_segment"]),
+         "the hybrid's expfit base took its frozen-ramp fallback"),
+        (hyb["stage4"]["arch"] != "hybrid", "stage 4 did not run the hybrid"),
+    ) if bad]
+    shutil.rmtree(root / "nh_box_96", ignore_errors=True)
+
+    # the sweep's Neo-Hookean row
+    case = next(c for c in sweep.CASES if len(c) > 8 and c[8])
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    row = sweep.bench_case(*case, device=dev)
+    row.update(steps=case[5], case_s=time.perf_counter() - t0)
+    res["sweep_nh_row"] = row
+    res["failures"] += [msg for bad, msg in (
+        (any(linear_kernel_launches().values()),
+         "the sweep's Neo-Hookean case launched a linear kernel (K1-K4)"),
         (row["fint_mode"] != "nh",
          "the sweep's Neo-Hookean case did not run Neo-Hookean forces"),
     ) if bad]
-    return res, sp
+    return res, hyb, sp
 
 
-def run_stages(cfg, dev):
-    """The five stages through api.Simulation, timed one by one."""
+# the surrogate legs on the default run's stage 1-2 artifacts
+SURROGATE_LEGS = {
+    "linear": dict(arch="linear"),
+    "ensemble2": dict(ensemble=2),
+    "per_rank_mtf": dict(stacked=False, training_method="mtf",
+                         dropout_encoder=0.1, dropout_decoder=0.1),
+}
+
+
+def run_surrogate_legs(workdir: Path, dev, epochs):
+    """Phase 3's default-config legs: stages 3-5 again on the default
+    run's stage 1-2 artifacts with the linear surrogate (stacked), a seed
+    ensemble of 2, and per-rank LSTMs with mixed teacher forcing and
+    dropout (the per-rank fallback in stage 4), each trained ``epochs``
+    epochs. None may launch K1-K4 (the default run is dense). Returns
+    {leg: readings with "failures"}."""
+    out = {}
+    for name, kw in SURROGATE_LEGS.items():
+        cfg = lstm_config(workdir, epochs)
+        for k, v in kw.items():
+            setattr(cfg.surrogate, k, v)
+        steps, se = cfg.solver.num_steps, cfg.solver.save_every
+        zero_kernel_launches()
+        sim, metrics, times = run_stages(cfg, dev, first=3)
+        launches = linear_kernel_launches()
+        del sim
+        recs = [json.loads(ln) for ln in (Path(cfg.workdir)
+                / "metrics.jsonl").read_text().splitlines()]
+        s3 = [r for r in recs if r["event"].startswith("stage3_train")]
+        s3 = s3[-cfg.partition.n_parts:] if name == "per_rank_mtf" else s3[-1:]
+        res = {"epochs": epochs if name != "linear" else None,
+               **path_readings(cfg, metrics, times, steps, se),
+               "stage3": [{k: r.get(k) for k in (
+                   "seconds", "train_s", "capture_s", "adam_steps",
+                   "ridge_lambda", "final_val_r2", "ensemble")}
+                   for r in s3],
+               "k1_k4_launches": launches}
+        if name != "linear":
+            train_s = sum(r["train_s"] for r in s3)
+            res["stage3_epochs_per_s"] = epochs * len(s3) / train_s
+        want_stacked = name != "per_rank_mtf"
+        res["failures"] = path_failures(res, launches) + [msg for bad, msg in (
+            (res["stage4"]["stacked_predictor"] is not want_stacked,
+             f"stage 4 stacked_predictor is "
+             f"{res['stage4']['stacked_predictor']}"),
+            (name == "ensemble2" and res["stage4"]["ensemble"] != 2,
+             "stage 4 did not average 2 members"),
+        ) if bad]
+        out[name] = res
+    return out
+
+
+def run_stages(cfg, dev, first: int = 1):
+    """The five stages (from stage ``first``) through api.Simulation,
+    timed one by one."""
     import torch
 
     from savtpu_torch import api
 
     sim = api.Simulation(cfg, device=dev, verbose=False)
     times = {}
-    for name, fn in (("stage1_s", sim.generate_data),
-                     ("stage2_s", sim.extract_shared),
-                     ("stage3_s", sim.train),
-                     ("stage4_s", sim.run_online),
-                     ("stage5_s", sim.compare)):
+    stages = (("stage1_s", sim.generate_data),
+              ("stage2_s", sim.extract_shared),
+              ("stage3_s", sim.train),
+              ("stage4_s", sim.run_online),
+              ("stage5_s", sim.compare))
+    for name, fn in stages[first - 1 :]:
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -1616,6 +1994,14 @@ def main(argv=None) -> int:
     ap.add_argument("--lstm-epochs", type=int, default=LSTM_EPOCHS,
                     help="training epochs of the default-config (LSTM) "
                          "run in phase 3; 3450 is the published depth")
+    ap.add_argument("--nh-steps", type=int, default=NH_STEPS,
+                    help="nh_box_96's depth in steps (expfit and hybrid); "
+                         "100000 is the published depth")
+    ap.add_argument("--surrogate-epochs", type=int,
+                    default=SURROGATE_EPOCHS,
+                    help="training epochs of the hybrid's residual LSTMs "
+                         "and of the default run's ensemble and per-rank "
+                         "legs")
     ap.add_argument("--dtype", choices=("float32", "float64"),
                     default="float32",
                     help="the slice's state dtype in phase 3 (the "
@@ -1673,7 +2059,8 @@ def main(argv=None) -> int:
         Tc = cfg.surrogate.block_size
         args, kw = k3_inputs(sp, dev, Tc, SEED)
         P, nc, Bk, _ = sp.band_Kd.shape
-        shapes = dict(P=P, nc=nc, Bk=Bk, S3=int(sp.sld.shape[1]), Tc=Tc,
+        S3_slice = int(sp.sld.shape[1])
+        shapes = dict(P=P, nc=nc, Bk=Bk, S3=S3_slice, Tc=Tc,
                       save_every=SAVE_EVERY, dtype="float32")
         from savtpu_torch.ops.band_plan import band_plan, cluster_table
         from savtpu_torch.ops.dense_step import sm_count
@@ -1783,6 +2170,15 @@ def main(argv=None) -> int:
         clock.phase(2, "lstm_vs_cpu", S3=S3, **lstm_checks)
         if lstm_checks["failures"]:
             raise RuntimeError(f"LSTM: {lstm_checks['failures']}")
+
+        # the surrogate slice: the hybrid's block, the ridge map, a seed
+        # ensemble, per-rank epochs with mixed teacher forcing and dropout
+        surrogates = check_surrogates(S3, S3_slice, dev)
+        torch.cuda.synchronize()
+        clock.phase(2, "surrogates_vs_cpu", S3=S3, S3_slice=S3_slice,
+                    **surrogates)
+        if surrogates["failures"]:
+            raise RuntimeError(f"surrogates: {surrogates['failures']}")
 
         # the structured-box slice's forces and exchange (float64)
         for name, check in (("nh_stencil_vs_cpu", check_nh_stencil_vs_cpu),
@@ -1896,18 +2292,37 @@ def main(argv=None) -> int:
         if not max(small.values()) <= 1e-12:
             raise RuntimeError(f"small sweep: GPU vs CPU {small}")
 
-        # nh_box_96 through the stages, then the sweep's Neo-Hookean row
-        nh_path, nh_sp = run_nh_box_path(tmp, dev, steps)
+        # nh_box_96 through the stages (expfit), stages 3-5 again with
+        # the hybrid, then the sweep's Neo-Hookean row
+        nh_path, nh_hybrid, nh_sp = run_nh_box_path(
+            tmp, dev, opts.nh_steps)
         clock.phase(3, "nh_box_96", **nh_path)
-        if nh_path["failures"]:
-            raise RuntimeError(f"nh_box_96: {nh_path['failures']}")
+        clock.phase(3, "nh_box_96_hybrid",
+                    surrogate_epochs=opts.surrogate_epochs, **nh_hybrid)
+        for name, res in (("nh_box_96", nh_path),
+                          ("nh_box_96_hybrid", nh_hybrid)):
+            if res["failures"]:
+                raise RuntimeError(f"{name}: {res['failures']}")
 
         # the default Config(): the LSTM-fed run at 100,000 steps, the
-        # training cut to --lstm-epochs epochs; then its stage 4 on K1
-        lstm_path = run_lstm_path(tmp / "lstm", dev, opts.lstm_epochs)
+        # training cut to --lstm-epochs epochs; then its stage 4 on K1;
+        # then the linear, ensemble and per-rank legs on its artifacts
+        lstm_path, legs = run_lstm_path(tmp / "lstm", dev, opts.lstm_epochs,
+                                        opts.surrogate_epochs)
         clock.phase(3, "lstm_default_config", **lstm_path)
         if lstm_path["failures"]:
             raise RuntimeError(f"LSTM path: {lstm_path['failures']}")
+        for name, res in legs.items():
+            clock.phase(3, f"default_config_{name}", **res)
+        failures = {n: r["failures"] for n, r in legs.items()
+                    if r["failures"]}
+        if failures:
+            raise RuntimeError(f"default-config legs: {failures}")
+        surrogate_launches = {
+            "nh_box_96": nh_path["k1_k4_launches"],
+            "nh_box_96_hybrid": nh_hybrid["k1_k4_launches"],
+            **{f"default_config_{n}": r["k1_k4_launches"]
+               for n, r in legs.items()}}
 
         # ---- phase 4: timing ----
         bound_ms, bound_by, nbytes, flops = k3_bound(args, Tc, SAVE_EVERY)
@@ -1949,12 +2364,17 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    def on_surrogate_paths(fn_name):
+        return {path: counts[fn_name]
+                for path, counts in surrogate_launches.items()}
+
     print(json.dumps({"kernels": [{
         "name": "online_banded",
         "route": "cuda",
         "source": "savtpu_torch/csrc/online_banded.cu",
         "replaces": "savtpu/ops/pallas_banded.py:234",
         "launches": launches,
+        "launches_surrogate_paths": on_surrogate_paths("online_chunk"),
         "max_abs_err": max_abs_err,
         "ms": kern,
         "plain_ms": plain_ms,
@@ -1975,6 +2395,8 @@ def main(argv=None) -> int:
         "library_ms": timing[f"{name}_{tag}"].get("library_ms"),
         **({"launches_lstm_stage4_pallas": lstm_path["k1_leg_launches"]}
            if name == "fint_matvec" else {}),
+        "launches_surrogate_paths": on_surrogate_paths(
+            "batched_fint_matvec" if name == "fint_matvec" else name),
     } for name, source, replaces, tag in (
         ("fint_matvec", "savtpu_torch/csrc/dense_step.cu",
          "savtpu/ops/pallas_step.py:59", "96x8x8_p8"),

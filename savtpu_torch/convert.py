@@ -6,7 +6,11 @@
 - :func:`lstm_arrays_from_savtpu` flattens savtpu's LSTM parameter
   pytree (one model, or P stacked on a leading axis) into the port's
   parameter names (``models/lstm.py``), and :func:`lstm_tree_from_arrays`
-  is the reverse.
+  is the reverse. :func:`params_from_savtpu` does the same for any of
+  savtpu's stage-3 models by its sidecar's arch: expfit arrays as they
+  are, the LSTM (per rank, stacked-trained or an (E, ...) seed ensemble),
+  the linear map's ``{"lin": {"W", "b"}}`` and the hybrid's
+  ``{"expfit", "lstm"}`` under the port's names (``io/artifacts.py``).
 - :func:`import_savtpu_run` copies a savtpu run directory's artifacts
   (label CSVs, stage-1/2 trajectories, stage-3 models, the run log) into
   a port ``ArtifactStore``, so any later stage of the port can start from
@@ -26,9 +30,11 @@ import torch
 
 from .io.artifacts import (
     ArtifactStore,
+    flatten_params,
     load_params_meta,
     save_displacement,
     save_params,
+    subtree,
 )
 from .models.lstm import CELL_KEYS
 from .ops.material import NeoHookean
@@ -68,9 +74,10 @@ def from_savtpu_arrays(
     box stencil); "stencil" takes stn_lmd, stn_mu and the nhs_* fields;
     ``exchange_mode`` "grid" takes grid_pdims, grid_ndims, grid_perm and
     grid_inv (its default is "psum"). ``models``
-    holds one (params, sidecar) pair per rank: expfit params, or an LSTM
-    parameter pytree (or its flat arrays) with savtpu's lstm sidecar.
-    Returns (ShardedProblem, [RankModel])."""
+    holds one (params, sidecar) pair per rank: any of savtpu's stage-3
+    parameter trees (or their flat arrays, :func:`params_from_savtpu`)
+    with its sidecar, which gives the arch, the ensemble size and the
+    scaling constants. Returns (ShardedProblem, [RankModel])."""
     missing = [k for k in _SCALARS + ("local_dofs_global",) + _INT_FIELDS
                if k not in sp_arrays]
     if missing:
@@ -118,17 +125,41 @@ def from_savtpu_arrays(
         if meta.get("modal_dim"):
             modal = (np.asarray(meta["modal_mean"], dtype=np.float64),
                      np.asarray(meta["modal_basis"], dtype=np.float64))
+        arch = meta.get("arch", "lstm")
+        flat = {k: np.asarray(v, dtype=np.float64)
+                for k, v in params_from_savtpu(params, meta).items()}
         scale = (None, None)
-        if meta.get("arch", "lstm") == "lstm":
-            params = lstm_arrays_from_savtpu(params)
+        if arch != "expfit":
             scale = tuple(
                 float(v) if np.ndim(v) == 0 else np.asarray(v, np.float64)
                 for v in (meta["scale_max"], meta["scale_min"]))
+        expfit = None
+        if arch == "hybrid":
+            expfit, flat = subtree(flat, "expfit"), subtree(flat, "lstm")
         rank_models.append(RankModel(
-            {k: np.asarray(v, dtype=np.float64) for k, v in params.items()},
-            int(meta["input_size"]), modal, dict(meta), *scale,
+            flat, int(meta["input_size"]), modal, dict(meta), *scale,
+            expfit=expfit, ens=int(meta.get("ensemble", 1) or 1),
         ))
     return sp, rank_models
+
+
+def params_from_savtpu(tree, meta: Dict) -> Dict[str, np.ndarray]:
+    """One rank's savtpu stage-3 parameters (its pytree, as flax's msgpack
+    restores it, or already flat) under the port's names, by the
+    sidecar's arch: expfit's arrays unchanged; an LSTM's (any leading
+    axes kept, e.g. a seed ensemble's (E, ...)) by
+    :func:`lstm_arrays_from_savtpu`; ``lin.W``, ``lin.b``; a hybrid's
+    ``expfit.<name>`` and ``lstm.<name>``."""
+    arch = meta.get("arch", "lstm")
+    if arch == "expfit" or any("." in k for k in tree):
+        return {k: np.asarray(v) for k, v in tree.items()}
+    if arch == "linear":
+        return flatten_params({"lin": tree["lin"]})
+    if arch == "hybrid":
+        return {**flatten_params({"expfit": tree["expfit"]}),
+                **flatten_params({"lstm": lstm_arrays_from_savtpu(
+                    tree["lstm"])})}
+    return lstm_arrays_from_savtpu(tree)
 
 
 def _items(node):
@@ -249,9 +280,10 @@ def import_savtpu_run(
     run log (metrics.jsonl, where stage 3 reads the stage-1 dt). Stage 2:
     sol_on_shared/rank=<r>-shared_dof. Stage 3: each rank's model and
     sidecar, with ``read_params(msgpack_path, sidecar)`` reading savtpu's
-    flax msgpack into {name: array} (expfit) or the LSTM's pytree, which
-    is stored under the port's names (savtpu's sidecar tag directory is
-    ``store.tag``). The port's stage 3 or stage 4 then continues the
+    flax msgpack into its parameter tree, which is stored under the
+    port's names (:func:`params_from_savtpu`; savtpu's sidecar tag
+    directory is ``store.tag``). The port's stage 3 or stage 4 then
+    continues the
     run."""
     src = Path(src_workdir)
     src_models = Path(src_model_dir)
@@ -286,9 +318,6 @@ def import_savtpu_run(
                 raise FileNotFoundError(
                     f"{mf}: flax msgpack params need a read_params callable"
                 )
-            params = read_params(mf, meta)
-            if meta.get("arch", "lstm") == "lstm":
-                params = lstm_arrays_from_savtpu(params)
             save_params(store.model_file(r),
-                        {k: np.asarray(v) for k, v in params.items()},
+                        params_from_savtpu(read_params(mf, meta), meta),
                         meta=meta)

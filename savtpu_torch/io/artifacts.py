@@ -20,7 +20,12 @@ holds one array per leaf of the JAX package's parameter pytree, named by
 its path with dots: ``encoder.<l>.fwd.Wi`` ... ``encoder.<l>.bwd.bh``,
 ``decoder.{Wi,Wh,bi,bh}``, ``fc.W``, ``fc.b`` and, for
 target_mode="increment", ``ginc`` (``models/lstm.py``). An expfit's holds
-its fit's arrays under their own names.
+its fit's arrays under their own names; a linear surrogate's ``lin.W``
+and ``lin.b`` (the JAX package's ``{"lin": {"W", "b"}}``); a hybrid's
+its expfit arrays under ``expfit.`` and its residual LSTM's under
+``lstm.`` (the JAX package's ``{"expfit": ..., "lstm": ...}``). A seed
+ensemble's arrays carry a leading member axis (E, ...), and its sidecar
+says ``"ensemble": E``, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -44,13 +49,34 @@ def load_displacement(path: str | Path) -> np.ndarray:
     return np.load(Path(path).with_suffix(".npz"))["Displacement"]
 
 
-def save_params(path: str | Path, params: Dict[str, np.ndarray],
+def flatten_params(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays -> {dotted path: array}; flat input passes
+    through unchanged."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_params(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def subtree(params: Dict[str, np.ndarray], prefix: str
+            ) -> Dict[str, np.ndarray]:
+    """The arrays under ``prefix.`` of a flat dict, with the prefix
+    dropped (a hybrid's "expfit" or "lstm" part)."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items()
+            if k.startswith(prefix + ".")}
+
+
+def save_params(path: str | Path, params: Dict,
                 meta: Optional[Dict] = None) -> None:
-    """Save a flat dict of arrays (.npz) + JSON sidecar."""
+    """Save a dict of arrays, flat or nested (stored under dotted paths),
+    as .npz + JSON sidecar."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(path.with_suffix(".npz"),
-             **{k: np.asarray(v) for k, v in params.items()})
+    np.savez(path.with_suffix(".npz"), **flatten_params(params))
     if meta is not None:
         path.with_suffix(".json").write_text(json.dumps(meta, indent=2))
 

@@ -149,16 +149,21 @@ class StackedSeq2Seq(nn.Module):
                 t.copy_(a.to(t.dtype))
 
     # ------------------------------------------------------------------
-    def encode(self, x):
+    def encode(self, x, keep=None, dropout: float = 0.0):
         """x (P, B, T, in) -> the last layer's final (hn, cn), each
         (P, B, D*H), forward and backward concatenated (PyTorch
         semantics: the backward direction's final state is the one after
-        consuming x[:, :, 0])."""
+        consuming x[:, :, 0]).
+
+        ``keep`` (training only): 0/1 masks (L-1, T, P, B, D*H) of
+        dropout between stacked layers (nn.LSTM semantics: after every
+        layer but the last), each layer's output scaled by
+        keep / (1 - ``dropout``)."""
         P, B, T, _ = x.shape
         H = self.hidden_size
         xs = x.permute(2, 0, 1, 3)  # (T, P, B, F)
         hn = cn = None
-        for layer in self.encoder:
+        for li, layer in enumerate(self.encoder):
             cells = list(layer.values())
             D = len(cells)
             F = xs.shape[-1]
@@ -187,6 +192,8 @@ class StackedSeq2Seq(nn.Module):
             else:
                 xs = hs[:, 0]
                 hn, cn = h, c
+            if keep is not None and li < len(self.encoder) - 1:
+                xs = xs * keep[li] / (1.0 - dropout)
         return hn, cn
 
     def predict(self, x, n_future: int, feat_mask=None):
@@ -213,4 +220,42 @@ class StackedSeq2Seq(nn.Module):
                 y = y * fm
             ys.append(y)
             xi = y
+        return torch.stack(ys, dim=2)
+
+    def train_decode(self, x, y_truth, n_future: int, tf_ratio, coins,
+                     enc_keep=None, dec_keep=None, dropout_encoder=0.0,
+                     dropout_decoder=0.0, feat_mask=None):
+        """The training-time forward with mixed teacher forcing and dropout
+        (``seq2seq_train_decode``). At decode step t the next input is the
+        truth row y_truth[:, :, t] where ``coins[:, t] < tf_ratio`` and the
+        model's output otherwise; dropout applies between encoder layers
+        (``enc_keep``, see :meth:`encode`) and to the decoder's hidden
+        state before the head (``dec_keep`` (n_future, P, B, D*H)).
+
+        The draws are inputs (coins (P, n_future), the 0/1 keep masks) and
+        ``tf_ratio`` a 0-dim tensor, so the caller chooses the generator and
+        a captured epoch reads new draws and the decayed ratio on every
+        replay. Returns (P, B, n_future, in)."""
+        h, c = self.encode(x, enc_keep, dropout_encoder)
+        xi = x[:, :, -1, :]
+        dec, fc = self.decoder, self.fc
+        bias = (dec.bi + dec.bh)[:, None, :]
+        fcb = fc.b[:, None, :]
+        ginc = None if self.ginc is None else self.ginc[:, None, None]
+        fm = None if feat_mask is None else feat_mask[:, None, :]
+        take = (coins < tf_ratio)[:, :, None, None]  # (P, n_future, 1, 1)
+        ys = []
+        for t in range(n_future):
+            z = torch.baddbmm(torch.baddbmm(bias, xi, dec.Wi), h, dec.Wh)
+            h, c = lstm_cell(z, c)
+            hid = h
+            if dec_keep is not None:
+                hid = hid * dec_keep[t] / (1.0 - dropout_decoder)
+            y = torch.baddbmm(fcb, hid, fc.W)
+            if ginc is not None:
+                y = y + ginc * xi
+            if fm is not None:
+                y = y * fm
+            ys.append(y)
+            xi = torch.where(take[:, t], y_truth[:, :, t], y)
         return torch.stack(ys, dim=2)

@@ -1,30 +1,38 @@
 """Stage 3: per-rank surrogate training (port of
 ``savtpu/pipeline/model_training.py``).
 
-Two surrogates are ported:
-- ``arch="lstm"`` (the default), trained stacked: every rank's model in
-  one :func:`~savtpu_torch.models.training.fit_stacked` pass on the
-  device, on windows padded to the widest rank and scaled per rank;
+Every surrogate the JAX package trains:
+- ``arch="lstm"`` (the default), stacked: every rank's model in one
+  :func:`~savtpu_torch.models.training.fit_stacked` pass on the device,
+  on windows padded to the widest rank and scaled per rank, widened to
+  ``ensemble`` members per rank; or per rank (``stacked=False``, or one
+  part): :func:`~savtpu_torch.models.training.fit` on the rank's own
+  windows, with mixed teacher forcing and dropout where configured;
+- ``arch="linear"``: the closed-form ridge map (models/linear.py), its
+  lambda chosen by closed-loop replays of the training sequences,
+  stacked or per rank;
 - ``arch="expfit"``: two-segment matrix-pencil system identification per
-  rank (models/expfit.py), host float64, milliseconds per rank.
+  rank (models/expfit.py), host float64, milliseconds per rank;
+- ``arch="hybrid"``: an expfit base per rank in its modal subspace, and
+  stacked LSTMs trained on the residual mode coefficients.
 
 Each rank's model and a JSON sidecar with the architecture and the
 training scaling constants (which stage 4 recomputes and checks) go to
-``{model_dir}/Rank-<r>/<tag>/``, beside the training curves. Not ported
-yet: the per-rank (unstacked) LSTM fit with mixed teacher forcing and
-dropout, ``ensemble > 1``, and the linear and hybrid surrogates.
+``{model_dir}/Rank-<r>/<tag>/``, beside the training curves.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from pathlib import Path
+from typing import Dict
 
 import numpy as np
 
 from ..config import Config
 from ..io.artifacts import ArtifactStore, load_displacement, save_params
-from ..models.data import scale_to_zero_one, strided_windows
+from ..models.data import scale_to_zero_one, strided_windows, train_val_split
 from ..models.expfit import eval_expfit, fit_expfit
 from ..models.modal import modal_basis, to_modal
 from ..utils import stage_log
@@ -68,6 +76,16 @@ def _phase_windows(trace, sur, eff_filter):
         Xa.append(Xp)
         Ya.append(Yp)
     return np.concatenate(Xa), np.concatenate(Ya), X, Y
+
+
+def _cl_seqs(trace, smax, smin, sur, eff_filter, n_phases=3):
+    """Scaled coarse-grid sequences of the training portion (the
+    trace[:cut_off][::eff_filter] grid the windows come from), a few phase
+    offsets of it, for the linear surrogate's closed-loop ridge selection
+    (models/linear.py ``fit_linear``)."""
+    cut = np.asarray(trace)[: int(sur.cut_off * len(trace))]
+    s = (cut - smax) / (smax - smin)
+    return [s[p::eff_filter] for p in range(min(n_phases, eff_filter))]
 
 
 def _stage1_dt(cfg: Config) -> float:
@@ -149,6 +167,89 @@ def _fit_rank(cfg: Config, store: ArtifactStore, r: int, dt: float):
     return params, fit_rel, val_rel, int(C), int(cut), ramp_end_row, info
 
 
+def _lstm_meta(sur) -> Dict:
+    """The sidecar keys every LSTM-trained artifact carries."""
+    return {
+        "hidden_size": sur.hidden_size,
+        "num_layers_encoder": sur.num_layers_encoder,
+        "bidirectional": sur.bidirectional,
+        "target_mode": getattr(sur, "target_mode", "absolute"),
+        "n_past": sur.n_past,
+        "n_future": sur.n_future,
+        "rollout_windows": sur.rollout_windows,
+        "filter_size": sur.filter_size,
+        "cut_off": sur.cut_off,
+    }
+
+
+def _scale_meta(sur, smax, smin) -> Dict:
+    per_feature = sur.scale_mode == "per_feature"
+    return {
+        "scale_mode": sur.scale_mode,
+        "scale_max": np.asarray(smax).tolist() if per_feature
+        else float(smax),
+        "scale_min": np.asarray(smin).tolist() if per_feature
+        else float(smin),
+    }
+
+
+def _modal_meta(D, mu, basis) -> Dict:
+    return {
+        "modal_dim": int(basis.shape[0]),
+        "modal_phys_size": int(D),
+        "modal_mean": mu.tolist(),
+        "modal_basis": basis.tolist(),
+    }
+
+
+def _fit_stats(stats: Dict, model) -> Dict:
+    """The timing fields of a stage-3 log event."""
+    if not stats:
+        return {"device": str(next(model.parameters()).device)}
+    return {
+        "adam_steps": stats["adam_steps"],
+        "capture_s": round(stats["capture_s"], 3),
+        "train_s": round(stats["train_s"], 3),
+        "graph_replay": stats["replay"],
+        "device": str(next(model.parameters()).device),
+    }
+
+
+def _padded_windows(traces, dims, sur, eff_filter):
+    """Each rank's windows padded to the widest rank and scaled per rank
+    after the padding (the convention stage 4 feeds the models with):
+    (Xp (P, G, n_p, Dmax), Yp, fm (P, Dmax), smaxs, smins, G)."""
+    n_parts = len(traces)
+    Dmax = max(dims)
+    per_feature = sur.scale_mode == "per_feature"
+    Xs, Ys, smaxs, smins = [], [], [], []
+    for tr in traces:
+        X, Y, X0, Y0 = _phase_windows(tr, sur, eff_filter)
+        _, _, smax, smin = scale_to_zero_one(X0, Y0, mode=sur.scale_mode)
+        if per_feature:
+            # pad to (Dmax,) with (0, -1): raw-zero pad dims stay 0 scaled
+            fmax = np.zeros(Dmax)
+            fmin = np.full(Dmax, -1.0)
+            fmax[: X.shape[-1]] = smax
+            fmin[: X.shape[-1]] = smin
+            smax, smin = fmax, fmin
+        Xs.append(X)
+        Ys.append(Y)
+        smaxs.append(smax)
+        smins.append(smin)
+    G = min(x.shape[0] for x in Xs)
+    Xp = np.zeros((n_parts, G, sur.n_past, Dmax))
+    Yp = np.zeros((n_parts, G, sur.n_future * sur.rollout_windows, Dmax))
+    fm = np.zeros((n_parts, Dmax))
+    for r in range(n_parts):
+        Xp[r, :, :, : dims[r]] = Xs[r][:G]
+        Yp[r, :, :, : dims[r]] = Ys[r][:G]
+        Xp[r] = (Xp[r] - smaxs[r]) / (smaxs[r] - smins[r])
+        Yp[r] = (Yp[r] - smaxs[r]) / (smaxs[r] - smins[r])
+        fm[r, : dims[r]] = 1.0
+    return Xp, Yp, fm, smaxs, smins, G
+
+
 def run(cfg: Config, n_parts: int | None = None, verbose: bool = True,
         device=None):
     """Train every rank's surrogate; LSTMs on ``device`` (CUDA unless the
@@ -156,21 +257,20 @@ def run(cfg: Config, n_parts: int | None = None, verbose: bool = True,
     sur = cfg.surrogate
     store = ArtifactStore(cfg.workdir, cfg.model_dir, sur.run_tag())
     n_parts = n_parts or cfg.partition.n_parts
-    if sur.arch == "lstm":
-        stacked = sur.stacked if sur.stacked is not None else n_parts > 1
-        if not stacked:
-            raise NotImplementedError(
-                "the per-rank (unstacked) LSTM fit is not ported yet; "
-                "train with surrogate.stacked=True and n_parts > 1")
-        if int(sur.ensemble or 1) > 1:
-            raise NotImplementedError(
-                "surrogate.ensemble > 1 is not ported yet")
+    if sur.arch == "expfit":
+        return _run_expfit(cfg, store, n_parts, verbose)
+    if sur.arch == "hybrid":
+        return _run_hybrid(cfg, store, n_parts, verbose, device)
+    if sur.arch not in ("lstm", "linear"):
+        raise ValueError(f"unknown surrogate.arch {sur.arch!r}")
+    stacked = sur.stacked if sur.stacked is not None else n_parts > 1
+    if stacked:
         return _run_stacked(cfg, store, n_parts, verbose, device)
-    if sur.arch != "expfit":
-        raise NotImplementedError(
-            f"surrogate.arch {sur.arch!r} is not ported yet; the port "
-            "trains arch='lstm' and arch='expfit'"
-        )
+    return _run_per_rank(cfg, store, n_parts, verbose, device)
+
+
+def _run_expfit(cfg: Config, store: ArtifactStore, n_parts: int,
+                verbose: bool):
     dt = _stage1_dt(cfg)
     log = stage_log(cfg)
     results = {}
@@ -199,15 +299,96 @@ def run(cfg: Config, n_parts: int | None = None, verbose: bool = True,
     return results
 
 
+def _run_per_rank(cfg: Config, store: ArtifactStore, n_parts: int,
+                  verbose: bool, device):
+    """One model per rank on its own unpadded windows (``stacked=False``,
+    or one part): an LSTM through ``fit`` (mixed teacher forcing and
+    dropout where configured), or a ridge map with its closed-loop
+    ladder. Each rank's split is ``default_rng(seed + 17 r)``'s, the JAX
+    package's."""
+    from ..models.training import fit
+
+    sur = cfg.surrogate
+    eff_filter = effective_filter(cfg)
+    log = stage_log(cfg)
+    results = {}
+    for r in range(n_parts):
+        trace = load_displacement(store.shared_dof_h5(r)).T  # (T, D)
+        modal_meta = {}
+        if sur.modal_dim:
+            n_train = int(sur.cut_off * len(trace))
+            mu, basis = modal_basis(trace[:n_train], sur.modal_dim)
+            modal_meta = _modal_meta(trace.shape[1], mu, basis)
+            trace = to_modal(trace, mu, basis)
+        input_size = trace.shape[1]
+        X, Y, X0, Y0 = _phase_windows(trace, sur, eff_filter)
+        _, _, smax, smin = scale_to_zero_one(X0, Y0, mode=sur.scale_mode)
+        X = np.asarray((X - smax) / (smax - smin))
+        Y = np.asarray((Y - smax) / (smax - smin))
+        rng = np.random.default_rng(sur.seed + 17 * r)
+        tr, va = train_val_split(len(X), sur.train_portion, rng)
+        if verbose:
+            print(
+                f"[model_training] rank {r}: input_size={input_size}, "
+                f"{len(tr)} train / {len(va)} val windows, "
+                f"{sur.epochs} epochs"
+            )
+        seqs = (_cl_seqs(trace, smax, smin, sur, eff_filter)
+                if sur.arch == "linear" else None)
+        fit_stats = {}
+        t0 = time.perf_counter()
+        model, hist = fit(
+            sur, X[tr], Y[tr], X[va], Y[va], device=device,
+            log_every=50 if verbose else 0,
+            log_fn=lambda m, r=r: print(f"[rank {r}] {m}"), stats=fit_stats,
+            seqs=seqs,
+        )
+        seconds = time.perf_counter() - t0
+        params = {k: v[0] for k, v in model.arrays().items()}
+        store.save_training_curves(r, hist)
+        final_val = hist["val_r2"][-1] if hist["val_r2"] else None
+        save_params(
+            store.model_file(r),
+            params,
+            meta={
+                **modal_meta,
+                "arch": sur.arch,
+                "window_phases": int(getattr(sur, "window_phases", 1) or 1),
+                "input_size": int(input_size),
+                **_lstm_meta(sur),
+                **_scale_meta(sur, smax, smin),
+                "final_train_loss": hist["train_loss"][-1],
+                "final_val_r2": final_val,
+            },
+        )
+        results[r] = (params, hist)
+        log.log(
+            "stage3_train_rank",
+            rank=r,
+            arch=sur.arch,
+            input_size=int(input_size),
+            epochs=sur.epochs if sur.arch == "lstm" else 1,
+            seconds=round(seconds, 3),
+            final_train_loss=hist["train_loss"][-1],
+            final_val_r2=final_val,
+            **({"ridge_lambda": hist["ridge_lambda"]}
+               if "ridge_lambda" in hist else {}),
+            **_fit_stats(fit_stats, model),
+        )
+    return results
+
+
 def _run_stacked(cfg: Config, store: ArtifactStore, n_parts: int,
                  verbose: bool, device):
-    """All ranks' LSTMs in one stacked training pass: raw windows padded
-    to the widest rank, each rank's [-1, 0] scaling applied after the
-    padding (the convention stage 4 feeds the models with), masked
-    recursive decode. Each rank's artifacts keep the per-rank layout; the
-    sidecar records the padding."""
-    import time
-
+    """All ranks' models in one stacked pass: raw windows padded to the
+    widest rank, each rank's [-1, 0] scaling applied after the padding
+    (the convention stage 4 feeds the models with), masked recursive
+    decode, or P closed-form ridge fits for ``arch="linear"``. A seed
+    ensemble widens the model axis E-fold (member e of rank r at e*P +
+    r), so each member trains from its own initial draw and split on the
+    same windows; its artifacts hold (E, ...) member stacks. Each rank's
+    artifacts keep the per-rank layout; the sidecar records the
+    padding."""
     from ..models.training import fit_stacked
 
     sur = cfg.surrogate
@@ -233,35 +414,8 @@ def _run_stacked(cfg: Config, store: ArtifactStore, n_parts: int,
             traces[r] = to_modal(traces[r], mu, basis)
         dims = [t.shape[1] for t in traces]
     Dmax = max(dims)
-
-    per_feature = sur.scale_mode == "per_feature"
-    Xs, Ys, smaxs, smins = [], [], [], []
-    for tr in traces:
-        X, Y, X0, Y0 = _phase_windows(tr, sur, eff_filter)
-        _, _, smax, smin = scale_to_zero_one(X0, Y0, mode=sur.scale_mode)
-        if per_feature:
-            # pad to (Dmax,) with (0, -1): raw-zero pad dims stay 0 scaled
-            fmax = np.zeros(Dmax)
-            fmin = np.full(Dmax, -1.0)
-            fmax[: X.shape[-1]] = smax
-            fmin[: X.shape[-1]] = smin
-            smax, smin = fmax, fmin
-        Xs.append(X)
-        Ys.append(Y)
-        smaxs.append(smax)
-        smins.append(smin)
-
-    G = min(x.shape[0] for x in Xs)
-    Xp = np.zeros((n_parts, G, sur.n_past, Dmax))
-    Yp = np.zeros((n_parts, G, sur.n_future * sur.rollout_windows, Dmax))
-    fm = np.zeros((n_parts, Dmax))
-    for r in range(n_parts):
-        # pad raw windows, then scale the whole padded array per rank
-        Xp[r, :, :, : dims[r]] = Xs[r][:G]
-        Yp[r, :, :, : dims[r]] = Ys[r][:G]
-        Xp[r] = (Xp[r] - smaxs[r]) / (smaxs[r] - smins[r])
-        Yp[r] = (Yp[r] - smaxs[r]) / (smaxs[r] - smins[r])
-        fm[r, : dims[r]] = 1.0
+    Xp, Yp, fm, smaxs, smins, G = _padded_windows(traces, dims, sur,
+                                                  eff_filter)
 
     if verbose:
         print(
@@ -269,6 +423,142 @@ def _run_stacked(cfg: Config, store: ArtifactStore, n_parts: int,
             f"{G} windows each, {sur.epochs} epochs"
         )
     log = (lambda s: print(f"[stacked] {s}")) if verbose else (lambda s: None)
+    seqs = None
+    if sur.arch == "linear":
+        # padded, scaled and masked coarse sequences of the training
+        # portion, in the windows' convention, for the ridge ladder
+        seqs = []
+        for r in range(n_parts):
+            cut = np.asarray(traces[r])[: int(sur.cut_off * len(traces[r]))]
+            pad = np.zeros((len(cut), Dmax))
+            pad[:, : dims[r]] = cut
+            s = ((pad - smaxs[r]) / (smaxs[r] - smins[r])) * fm[r]
+            seqs.append([s[p::eff_filter] for p in range(min(3, eff_filter))])
+
+    E = int(getattr(sur, "ensemble", 1) or 1)
+    if E > 1 and sur.arch != "lstm":
+        raise ValueError("surrogate.ensemble requires arch='lstm'")
+    tile = (lambda a: np.concatenate([a] * E)) if E > 1 else (lambda a: a)
+    fit_stats = {}
+    t0 = time.perf_counter()
+    model, hist = fit_stacked(
+        sur, tile(Xp), tile(Yp), tile(fm), device=device,
+        log_every=50 if verbose else 0, log_fn=log, stats=fit_stats,
+        seqs=seqs,
+    )
+    seconds = time.perf_counter() - t0
+    stage_log(cfg).log(
+        "stage3_train_stacked",
+        shards=n_parts,
+        ensemble=E,
+        arch=sur.arch,
+        input_size=int(Dmax),
+        windows=int(G),
+        epochs=sur.epochs if sur.arch == "lstm" else 1,
+        seconds=round(seconds, 3),
+        final_train_loss=[float(x) for x in hist["train_loss"][-1]],
+        final_val_r2=[float(x) for x in hist["val_r2"][-1]],
+        **({"ridge_lambda": hist["ridge_lambda"][0].tolist()}
+           if "ridge_lambda" in hist else {}),
+        **_fit_stats(fit_stats, model),
+    )
+
+    arrays = model.arrays()
+    results = {}
+    for r in range(n_parts):
+        if E > 1:
+            idx = [e * n_parts + r for e in range(E)]
+            params_r = {k: v[idx] for k, v in arrays.items()}
+        else:
+            params_r = {k: v[r] for k, v in arrays.items()}
+        hist_r = {k: hist[k][:, r].tolist() for k in hist}
+        store.save_training_curves(r, hist_r)
+        modal_meta = {}
+        if modal:
+            modal_meta = _modal_meta(phys_dims[r], modal_mus[r],
+                                     modal_bases[r])
+        save_params(
+            store.model_file(r),
+            params_r,
+            meta={
+                **modal_meta,
+                "arch": sur.arch,
+                "ensemble": E,
+                "window_phases": int(getattr(sur, "window_phases", 1) or 1),
+                "input_size": int(Dmax),
+                "real_input_size": int(dims[r]),
+                "padded_input": True,
+                **_lstm_meta(sur),
+                **_scale_meta(sur, smaxs[r], smins[r]),
+                "final_train_loss": hist_r["train_loss"][-1],
+                "final_val_r2": hist_r["val_r2"][-1],
+            },
+        )
+        results[r] = (params_r, hist_r)
+    return results
+
+
+def _run_hybrid(cfg: Config, store: ArtifactStore, n_parts: int,
+                verbose: bool, device):
+    """arch="hybrid": expfit base + LSTM residual.
+
+    Per rank, the modal basis of the training portion and the
+    matrix-pencil fit of its mode coefficients carry the bulk of the
+    interface motion open-loop in time; the residual ``co - base`` over
+    the whole trace is what the stacked LSTMs train on (padded to the
+    widest rank and scaled per rank, as ``_run_stacked``). Online, the
+    block is base(t) + LSTM(residual history), so the LSTM's drift acts on
+    the residual amplitude only. Requires modal_dim > 0."""
+    from ..models.training import fit_stacked
+
+    sur = cfg.surrogate
+    if not sur.modal_dim:
+        raise ValueError("arch='hybrid' requires surrogate.modal_dim > 0")
+    dt = _stage1_dt(cfg)
+    se = max(int(cfg.solver.save_every), 1)
+    ramp_s = float(getattr(sur, "expfit_ramp_s", 1.0) or 0.0)
+    ramp_end_row = (ramp_s / (dt * se)) if ramp_s > 0 else 0.0
+    eff_filter = effective_filter(cfg)
+
+    res_traces, modal_metas, exp_params, exp_metas, dims = [], [], [], [], []
+    for r in range(n_parts):
+        trace = load_displacement(store.shared_dof_h5(r)).T  # (T, D)
+        T, D = trace.shape
+        cut = int(sur.cut_off * T)
+        mu, basis = modal_basis(trace[:cut], sur.modal_dim)
+        co = to_modal(trace, mu, basis)
+        params_e, info = fit_expfit(co[:cut], ramp_end_row,
+                                    order=sur.expfit_order)
+        base = eval_expfit(params_e, np.arange(T, dtype=float), ramp_end_row)
+        res = co - base
+        fit_rel = float(np.linalg.norm(res[:cut])
+                        / (float(np.linalg.norm(co[:cut])) or 1.0))
+        if verbose:
+            print(
+                f"[model_training] rank {r}: hybrid expfit "
+                f"{info['n_modes']} modes, residual/signal {fit_rel:.2e}"
+            )
+        res_traces.append(res)
+        dims.append(res.shape[1])
+        modal_metas.append(_modal_meta(D, mu, basis))
+        exp_params.append(params_e)
+        exp_metas.append({
+            "expfit_order": int(sur.expfit_order),
+            "expfit_modes": int(info["n_modes"]),
+            "expfit_ramp_end_row": float(ramp_end_row),
+            "expfit_has_post_segment": bool(info["has_post_segment"]),
+            "expfit_residual_rel": fit_rel,
+        })
+
+    Kmax = max(dims)
+    Xp, Yp, fm, smaxs, smins, G = _padded_windows(res_traces, dims, sur,
+                                                  eff_filter)
+    if verbose:
+        print(
+            f"[model_training] hybrid stacked residual LSTM: {n_parts} "
+            f"shards, K={Kmax}, {G} windows each, {sur.epochs} epochs"
+        )
+    log = (lambda s: print(f"[hybrid] {s}")) if verbose else (lambda s: None)
     fit_stats = {}
     t0 = time.perf_counter()
     model, hist = fit_stacked(
@@ -277,62 +567,41 @@ def _run_stacked(cfg: Config, store: ArtifactStore, n_parts: int,
     )
     seconds = time.perf_counter() - t0
     stage_log(cfg).log(
-        "stage3_train_stacked",
+        "stage3_train_hybrid",
         shards=n_parts,
-        input_size=int(Dmax),
+        input_size=int(Kmax),
         windows=int(G),
         epochs=sur.epochs,
         seconds=round(seconds, 3),
+        residual_rel=[m["expfit_residual_rel"] for m in exp_metas],
+        expfit_has_post_segment=[m["expfit_has_post_segment"]
+                                 for m in exp_metas],
         final_train_loss=[float(x) for x in hist["train_loss"][-1]],
         final_val_r2=[float(x) for x in hist["val_r2"][-1]],
-        adam_steps=fit_stats["adam_steps"],
-        capture_s=round(fit_stats["capture_s"], 3),
-        train_s=round(fit_stats["train_s"], 3),
-        graph_replay=fit_stats["replay"],
-        device=str(next(model.parameters()).device),
+        **_fit_stats(fit_stats, model),
     )
 
     arrays = model.arrays()
     results = {}
     for r in range(n_parts):
-        params_r = {k: v[r] for k, v in arrays.items()}
+        lstm_r = {k: v[r] for k, v in arrays.items()}
         hist_r = {k: hist[k][:, r].tolist() for k in hist}
         store.save_training_curves(r, hist_r)
-        modal_meta = {}
-        if modal:
-            modal_meta = {
-                "modal_dim": int(dims[r]),
-                "modal_phys_size": int(phys_dims[r]),
-                "modal_mean": modal_mus[r].tolist(),
-                "modal_basis": modal_bases[r].tolist(),
-            }
+        params_r = {"expfit": exp_params[r], "lstm": lstm_r}
         save_params(
             store.model_file(r),
             params_r,
             meta={
-                **modal_meta,
-                "arch": sur.arch,
-                "ensemble": 1,
+                **modal_metas[r],
+                **exp_metas[r],
+                "arch": "hybrid",
                 "window_phases": int(getattr(sur, "window_phases", 1) or 1),
-                "input_size": int(Dmax),
+                "input_size": int(Kmax),
                 "real_input_size": int(dims[r]),
                 "padded_input": True,
-                "hidden_size": sur.hidden_size,
-                "num_layers_encoder": sur.num_layers_encoder,
-                "bidirectional": sur.bidirectional,
-                "target_mode": getattr(sur, "target_mode", "absolute"),
-                "n_past": sur.n_past,
-                "n_future": sur.n_future,
-                "rollout_windows": sur.rollout_windows,
-                "filter_size": sur.filter_size,
-                "cut_off": sur.cut_off,
-                "scale_mode": sur.scale_mode,
-                "scale_max": (
-                    smaxs[r].tolist() if per_feature else smaxs[r]
-                ),
-                "scale_min": (
-                    smins[r].tolist() if per_feature else smins[r]
-                ),
+                **_lstm_meta(sur),
+                "save_every": int(se),
+                **_scale_meta(sur, smaxs[r], smins[r]),
                 "final_train_loss": hist_r["train_loss"][-1],
                 "final_val_r2": hist_r["val_r2"][-1],
             },

@@ -3,22 +3,29 @@
 
 Schedule: i_cri+1 = n_p*n_s synchronized steps (the exchanged stepper),
 then blocks of n_f*n_s steps with NO exchange. Each block's shared DOFs
-come from the ranks' surrogates, all ranks at once:
-- ``arch="lstm"``: one phase-interleaved prediction of the stacked
-  encoder-decoders (models/predictor.py) from the device-resident window
-  of the last n_p*n_s shared rows, which every block then rolls forward
-  by its own recorded shared rows;
+come from the ranks' surrogates, all ranks at once where their models
+stack:
+- ``arch="lstm"`` and ``"linear"``: one phase-interleaved prediction of
+  the stacked models (models/predictor.py) from the device-resident
+  window of the last n_p*n_s shared rows, which every block then rolls
+  forward by its own recorded shared rows; a seed ensemble's members run
+  on the same stacked axis and their predictions are averaged;
 - ``arch="expfit"``: the closed-form fit evaluated on the device from a
-  small per-block pack of advanced amplitudes (models/expfit.py).
+  small per-block pack of advanced amplitudes (models/expfit.py);
+- ``arch="hybrid"``: that expfit base plus the stacked LSTMs' prediction
+  of the residual, from a window of residual rows (the recorded rows
+  minus the base; the base's rows of the warm-up are evaluated on the
+  host in float64).
 Then, as in the JAX package: owner consensus, smoothing
 (``pred_smooth``), the exchanged anchor (``pred_anchor``), and the block
 through ``ShardedProblem.stacked_run`` with full recording, which the
 card replays from CUDA graphs (in banded compensated mode one launch of
 the online kernel, ops/online_banded.py). A ragged last block takes the
-first rows of a full block's LSTM prediction, or host float64 expfit
-rows. Not ported yet: resync blocks, stage-4 checkpoints, seed
-ensembles, and the per-rank fallback loop for ranks whose models do not
-stack (unequal modal_dim, or unpadded models).
+first rows of a full block's prediction, with host float64 expfit rows.
+Models that do not stack (per-rank models of unpadded widths, or an
+unequal modal_dim) run the per-rank fallback loop: each rank's model
+predicts its own block from its own window, block by block. Not ported
+yet: resync blocks and stage-4 checkpoints.
 """
 
 from __future__ import annotations
@@ -36,11 +43,13 @@ from ..io.artifacts import (
     load_params,
     load_params_meta,
     save_displacement,
+    subtree,
 )
 from ..models.data import scale_to_zero_one, strided_windows
 from ..models.expfit import advance_expfit, eval_expfit, eval_expfit_device
+from ..models.linear import StackedLinear
 from ..models.lstm import StackedSeq2Seq
-from ..models.modal import to_modal
+from ..models.modal import from_modal, to_modal
 from ..models.predictor import phase_interleaved_predict_stacked
 from ..utils import stage_log, synchronize
 from .common import (
@@ -61,19 +70,35 @@ class RankModel:
     input_size: int
     modal: Optional[Tuple[np.ndarray, np.ndarray]]  # (mu (D,), basis (K, D))
     meta: Dict
-    # the LSTM's scaling constants: floats ("joint") or (input_size,)
+    # the LSTM's or the ridge map's scaling constants: floats ("joint") or
+    # (input_size,)
     smax: object = None
     smin: object = None
+    # a hybrid's expfit base (its LSTM is ``params``)
+    expfit: Optional[Dict[str, np.ndarray]] = None
+    # seed-ensemble members: every array of ``params`` is (ens, ...)
+    ens: int = 1
+
+    @property
+    def arch(self) -> str:
+        return self.meta.get("arch", "lstm")
 
 
-def _check_scaling(cfg: Config, store, r: int, meta: Dict, modal):
+def _check_scaling(cfg: Config, store, r: int, meta: Dict, modal,
+                   expfit=None):
     """Recompute rank r's scaling constants from its stored stage-2 trace,
     as the reference's online stage does, and check them against the
-    sidecar's (rtol 1e-10). Returns the sidecar's (smax, smin)."""
+    sidecar's (rtol 1e-10). A hybrid's (``expfit`` given) are those of the
+    residual: the mode coefficients minus the sidecar's expfit base.
+    Returns the sidecar's (smax, smin)."""
     sur = cfg.surrogate
     trace = load_displacement(store.shared_dof_h5(r)).T
     if modal is not None:
         trace = to_modal(trace, *modal)
+    if expfit is not None:
+        trace = trace - eval_expfit(
+            expfit, np.arange(len(trace), dtype=float),
+            float(meta["expfit_ramp_end_row"]))
     X, Y = strided_windows(
         trace, sur.n_past,
         sur.n_future * int(meta.get("rollout_windows", 1) or 1),
@@ -88,17 +113,23 @@ def _check_scaling(cfg: Config, store, r: int, meta: Dict, modal):
                        meta_max.reshape(-1)[:D_real], rtol=1e-10) or \
             not np.allclose(np.asarray(smin).reshape(-1),
                             meta_min.reshape(-1)[:D_real], rtol=1e-10):
+        what = "hybrid residual scaling" if expfit is not None else (
+            "scaling constants")
         raise ValueError(
-            f"rank {r}: scaling constants drifted between training and "
-            f"online (mode={scale_mode})")
+            f"rank {r}: {what} drifted between training and online "
+            f"(mode={scale_mode})")
     return (meta_max if meta_max.ndim else float(meta_max),
             meta_min if meta_min.ndim else float(meta_min))
 
 
 def load_rank_models(ctx: StageContext):
     """Per-rank surrogates from the stage-3 artifacts (params + JSON
-    sidecar). An LSTM's scaling constants are recomputed from the stored
-    trace and checked against the sidecar."""
+    sidecar). The scaling constants of an LSTM, a ridge map or a hybrid's
+    residual LSTM are recomputed from the stored trace and checked
+    against the sidecar. Where the config asks for ``arch="expfit"`` and
+    the artifacts are hybrid, only the hybrid's expfit base is kept (the
+    JAX package's arch downgrade)."""
+    sur = ctx.cfg.surrogate
     models = []
     for r in range(ctx.sp.n_parts):
         mf = ctx.store.model_file(r)
@@ -109,26 +140,53 @@ def load_rank_models(ctx: StageContext):
             )
         meta = load_params_meta(mf)
         arch = meta.get("arch", "lstm")
-        if arch not in ("expfit", "lstm"):
-            raise NotImplementedError(
-                f"rank {r}: surrogate arch {arch!r} is not ported yet; the "
-                "port runs arch='lstm' and arch='expfit'"
-            )
-        if int(meta.get("ensemble", 1) or 1) > 1:
-            raise NotImplementedError(
-                f"rank {r}: seed ensembles are not ported yet")
+        if arch not in ("expfit", "lstm", "linear", "hybrid"):
+            raise ValueError(f"rank {r}: unknown surrogate arch {arch!r}")
         modal = None
         if meta.get("modal_dim"):
             modal = (
                 np.asarray(meta["modal_mean"], dtype=np.float64),
                 np.asarray(meta["modal_basis"], dtype=np.float64),
             )
-        m = RankModel(load_params(mf), int(meta["input_size"]), modal, meta)
-        if arch == "lstm":
-            m.smax, m.smin = _check_scaling(ctx.cfg, ctx.store, r, meta,
-                                            modal)
+        params = load_params(mf)
+        size = int(meta["input_size"])
+        if arch == "expfit":
+            m = RankModel(params, size, modal, meta)
+        elif arch == "hybrid" and sur.arch == "expfit":
+            m = RankModel(subtree(params, "expfit"), size, modal,
+                          {**meta, "arch": "expfit"})
+        elif arch == "hybrid":
+            ef = subtree(params, "expfit")
+            m = RankModel(subtree(params, "lstm"), size, modal, meta,
+                          *_check_scaling(ctx.cfg, ctx.store, r, meta, modal,
+                                          ef), expfit=ef)
+        else:
+            m = RankModel(params, size, modal, meta,
+                          *_check_scaling(ctx.cfg, ctx.store, r, meta,
+                                          modal),
+                          ens=int(meta.get("ensemble", 1) or 1))
         models.append(m)
     return models
+
+
+def stacked_net(arrays: Dict[str, np.ndarray], arch: str, n_past: int,
+                dtype, device):
+    """The stacked module (StackedSeq2Seq, or StackedLinear for
+    ``arch="linear"``) holding the given (N, ...) arrays."""
+    if arch == "linear":
+        return StackedLinear.from_arrays(arrays, n_past, dtype=dtype,
+                                         device=device)
+    return StackedSeq2Seq.from_arrays(arrays, dtype=dtype, device=device)
+
+
+def _stack_members(models, ens: int) -> Dict[str, np.ndarray]:
+    """Every rank's arrays on one model axis: (P, ...) for single models,
+    member e of rank r at e*P + r for seed ensembles ((E, ...) each)."""
+    keys = models[0].params
+    if ens <= 1:
+        return {k: np.stack([m.params[k] for m in models]) for k in keys}
+    return {k: np.stack([m.params[k] for m in models], axis=1).reshape(
+        (-1,) + np.shape(models[0].params[k])[1:]) for k in keys}
 
 
 def prediction_consensus(preds: torch.Tensor, sp) -> torch.Tensor:
@@ -179,24 +237,53 @@ def anchor_block(sp, carry, preds):
     return preds + delta[:, None, :]
 
 
-def modal_predict_stacked(model, hist, smaxv, sminv, sur, modal, fmaskv):
+def modal_predict_stacked(model, hist, smaxv, sminv, sur, modal, fmaskv,
+                          ens: int = 1):
     """Stacked phase-interleaved block prediction with optional modal
     projection: physical history (P, W, S3) -> physical block (P, T, S3).
     ``modal`` is None or (mu (P, S3), basis (P, K, S3), coef_mask (P, K));
-    the projection runs in the history's dtype, the models in theirs."""
+    the projection runs in the history's dtype, the models in theirs.
+    ``ens > 1``: ``model`` holds ens*P models (member e of rank r at e*P
+    + r), and the members' predictions are averaged (the scaling is
+    affine per rank, so averaging scaled outputs equals averaging raw
+    ones)."""
     mdt = smaxv.dtype
+
+    def pred(h, fm):
+        if ens <= 1:
+            return phase_interleaved_predict_stacked(
+                model, h, smaxv, sminv, sur.n_past, sur.n_future,
+                sur.filter_size, feat_mask=fm)
+        rep = lambda t: t.repeat((ens,) + (1,) * (t.dim() - 1))  # noqa
+        out = phase_interleaved_predict_stacked(
+            model, rep(h), rep(smaxv), rep(sminv), sur.n_past, sur.n_future,
+            sur.filter_size, feat_mask=rep(fm))
+        return out.view((ens, h.shape[0]) + out.shape[1:]).mean(0)
+
     with torch.no_grad():
         if modal is None:
-            return phase_interleaved_predict_stacked(
-                model, hist.to(mdt), smaxv, sminv, sur.n_past, sur.n_future,
-                sur.filter_size, feat_mask=fmaskv)
+            return pred(hist.to(mdt), fmaskv)
         mu, basis, fmc = modal
         histc = torch.einsum("pwd,pkd->pwk", hist - mu[:, None, :].to(
             hist.dtype), basis.to(hist.dtype))
-        coefs = phase_interleaved_predict_stacked(
-            model, histc.to(mdt), smaxv, sminv, sur.n_past, sur.n_future,
-            sur.filter_size, feat_mask=fmc)
+        coefs = pred(histc.to(mdt), fmc)
         return modal_reconstruct(coefs, (mu, basis), fmaskv)
+
+
+def hybrid_block(model, hist, smaxv, sminv, sur, modal, fmaskv, base,
+                 ens: int = 1):
+    """arch="hybrid": the block prediction base + residual. ``hist`` is
+    the window of residual rows (the recorded shared rows minus the
+    base), ``base`` (P, n, S3) the expfit base of the block's rows (n <=
+    the block; the first n rows of the residual prediction are used), and
+    ``modal`` the ranks' (mu, basis, coef_mask). The residual models
+    project with a zero mean: mu lives in the base. Returns the
+    prediction in the base's dtype."""
+    mu, basis, fmc = modal
+    resid = modal_predict_stacked(model, hist, smaxv, sminv, sur,
+                                  (torch.zeros_like(mu), basis, fmc),
+                                  fmaskv, ens)
+    return base + resid[:, : base.shape[1]].to(base.dtype)
 
 
 def modal_reconstruct(coefs, modal, fmask):
@@ -220,8 +307,6 @@ def _check_supported(cfg: Config) -> None:
     ):
         if val:
             raise NotImplementedError(f"{name} is not ported yet")
-    if sur.ensemble > 1:
-        raise NotImplementedError("surrogate.ensemble > 1 is not ported yet")
 
 
 class _ExpfitFeed:
@@ -236,7 +321,8 @@ class _ExpfitFeed:
         # per-rank (params, save_every, ramp_end_row) and the static pole
         # pack (padded with a decayed dummy pole z=0.5 of zero amplitude)
         self.ef = [
-            (m.params, float(m.meta.get("save_every", 1) or 1),
+            (m.expfit if m.expfit is not None else m.params,
+             float(m.meta.get("save_every", 1) or 1),
              float(m.meta["expfit_ramp_end_row"]))
             for m in models
         ]
@@ -276,8 +362,13 @@ class _ExpfitFeed:
 
     def host_rows(self, b: int, n: int) -> np.ndarray:
         """Physical (P, n, S3) float64 rows for n steps from block b."""
-        steps = np.arange(self.n_sync + b * self.block,
-                          self.n_sync + b * self.block + n, dtype=np.float64)
+        return self.rows_at(np.arange(self.n_sync + b * self.block,
+                                      self.n_sync + b * self.block + n,
+                                      dtype=np.float64))
+
+    def rows_at(self, steps: np.ndarray) -> np.ndarray:
+        """Physical (P, len(steps), S3) float64 rows at the given steps."""
+        n = len(steps)
         out = np.zeros((self.P, n, self.S3))
         for r, m in enumerate(self.models):
             pr, se_r, ramp_r = self.ef[r]
@@ -288,6 +379,20 @@ class _ExpfitFeed:
             else:
                 out[r, :, : co.shape[1]] = co
         return out
+
+
+def _stacked_ok(models, arch: str, modal_on: bool, S3: int) -> bool:
+    """Whether every rank's model runs on one stacked axis: expfit always
+    (with a uniform modal_dim in modal mode); otherwise padded models of a
+    uniform modal_dim, or padded models as wide as the shared rows."""
+    P = len(models)
+    if arch == "expfit":
+        return (not modal_on) or len({m.input_size for m in models}) == 1
+    if modal_on:
+        return (all(m.meta.get("padded_input", False) for m in models)
+                and len({m.input_size for m in models}) == 1)
+    return P > 0 and all(m.meta.get("padded_input", False)
+                         and m.input_size == S3 for m in models)
 
 
 def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
@@ -313,10 +418,20 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     fdt = _SUR_DTYPES[sur.dtype]
     hdt = _SUR_DTYPES[sur.hist_dtype or sur.dtype]
     W = sur.n_past * sur.filter_size
-    archs = {m.meta.get("arch", "lstm") for m in models}
+    archs = {m.arch for m in models}
     if len(archs) > 1:
         raise ValueError(f"mixed surrogate arches across ranks: {archs}")
-    lstm_on = archs == {"lstm"}
+    arch = archs.pop() if archs else "lstm"
+    hybrid_on = arch == "hybrid"
+    ens_set = {m.ens for m in models}
+    if len(ens_set) > 1:
+        raise ValueError(f"mixed ensemble sizes across ranks: {ens_set}")
+    ens = ens_set.pop() if ens_set else 1
+    if hybrid_on and sur.pred_smooth:
+        raise ValueError(
+            "pred_smooth is not supported with arch='hybrid' (the history "
+            "window holds residual rows; the modal basis is already a "
+            "spatial band-limit)")
     if verbose:
         print(
             f"[online] {n_sync} synced + {num_steps - n_sync} comm-free "
@@ -326,25 +441,18 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     modal_on = P > 0 and all(m.modal is not None for m in models)
     if any(m.modal is not None for m in models) and not modal_on:
         raise ValueError("mixed modal and raw-channel surrogates across ranks")
-    if modal_on and len({m.input_size for m in models}) != 1:
-        raise NotImplementedError(
-            "ranks with different modal_dim need the per-rank fallback "
-            "path, which is not ported yet"
-        )
-    if lstm_on and not all(
-            m.meta.get("padded_input", False)
-            and (modal_on or m.input_size == S3) for m in models):
-        raise NotImplementedError(
-            "LSTM models that do not stack (unpadded, or narrower than "
-            "the shared rows) need the per-rank fallback path, which is "
-            "not ported yet")
+    stacked_ok = _stacked_ok(models, arch, modal_on, S3)
+    if arch in ("expfit", "hybrid") and not stacked_ok:
+        raise ValueError(
+            f"arch={arch!r} requires the stacked online path (uniform "
+            "modal_dim across ranks)")
     fmask_np = np.zeros((P, S3), dtype=np.float32)
     for r in range(P):
         fmask_np[r, : 3 * len(maps.shared_nodes[r])] = 1.0
     fmask = torch.as_tensor(fmask_np, dtype=fdt).to(dev)
     modal_pack = None
     Kfeed = S3
-    if modal_on:
+    if modal_on and stacked_ok:
         Kfeed = models[0].input_size
         mu_np = np.zeros((P, S3))
         basis_np = np.zeros((P, Kfeed, S3))
@@ -357,31 +465,43 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         modal_pack = tuple(torch.as_tensor(a, dtype=fdt).to(dev)
                            for a in (mu_np, basis_np, fmc))
 
-    if lstm_on:
-        model = StackedSeq2Seq.from_arrays(
-            {k: np.stack([m.params[k] for m in models])
-             for k in models[0].params}, dtype=fdt, device=dev)
+    feed = None
+    if arch in ("expfit", "hybrid"):
+        feed = _ExpfitFeed(models, P, S3, Kfeed, modal_on, n_sync, block,
+                           dev)
+    net = smax_v = smin_v = None
+    if stacked_ok and arch != "expfit":
+        net = stacked_net(_stack_members(models, ens), arch, sur.n_past,
+                          fdt, dev)
         smax_v = torch.as_tensor(np.array([m.smax for m in models]),
                                  dtype=fdt).to(dev)
         smin_v = torch.as_tensor(np.array([m.smin for m in models]),
                                  dtype=fdt).to(dev)
 
-        def block_preds(b, hist):
-            return modal_predict_stacked(model, hist, smax_v, smin_v, sur,
-                                         modal_pack, fmask)
-    else:
-        feed = _ExpfitFeed(models, P, S3, Kfeed, modal_on, n_sync, block,
-                           dev)
-
-        def block_preds(b, hist):
-            return modal_reconstruct(feed.coefs(b), modal_pack, fmask)
+    def block_preds(b, hist, n=None):
+        """The physical (P, block, S3) prediction of block b from the
+        history window, and the hybrid's base (else None). ``n`` rows of a
+        ragged tail take host float64 expfit rows."""
+        if arch == "expfit":
+            if n is not None:
+                return torch.as_tensor(feed.host_rows(b, n)).to(dev), None
+            return modal_reconstruct(feed.coefs(b), modal_pack, fmask), None
+        if not hybrid_on:
+            return modal_predict_stacked(net, hist, smax_v, smin_v, sur,
+                                         modal_pack, fmask, ens), None
+        if n is not None:
+            base = torch.as_tensor(feed.host_rows(b, n)).to(dev)
+        else:
+            base = modal_reconstruct(feed.coefs(b), modal_pack, fmask)
+        return hybrid_block(net, hist, smax_v, smin_v, sur, modal_pack,
+                            fmask, base, ens), base
 
     def refine(preds, hist, carry):
         """Consensus, smoothing and the anchor, in the JAX package's
         order."""
         if sur.pred_consensus:
             preds = prediction_consensus(preds, sp)
-        if sur.pred_smooth:
+        if sur.pred_smooth and hist is not None:
             preds = smooth_preds(preds, hist.to(sdt), sur.pred_smooth)
         if sur.pred_anchor:
             preds = anchor_block(sp, carry, preds)
@@ -414,38 +534,46 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     synchronize(dev)
     tprof["warmup_s"] = time.perf_counter() - t_start
     write_seg(traj0)
-    # the device-resident trailing window of shared rows: the LSTM's
-    # encoder input, and the smoothing's front edge
-    hist = torch.as_tensor(np.asarray(shared0[:, -W:], np.float64),
-                           dtype=hdt).to(dev)
+    h0 = np.asarray(shared0[:, -W:], np.float64)
 
     t_blocks = time.perf_counter()
     full_blocks = (num_steps - n_sync) // block
-    for b in range(full_blocks):
-        preds = refine(block_preds(b, hist).to(sdt), hist, carry)
-        (traj_b, shared_b), carry = sp.stacked_run(
-            *carry, block, sync=False, preds=preds, record="all",
-            save_every=se_run,
-        )
-        hist = torch.cat([hist, shared_b.to(hdt)], dim=1)[:, -W:]
-        write_seg(traj_b)
-        if verbose:
-            print(f"[online] step {n_sync + (b + 1) * block}/{num_steps}")
-    i = n_sync + full_blocks * block
-    if i < num_steps:
-        # ragged tail (< one block): the first rows of a full block's
-        # LSTM prediction, or host float64 expfit rows
-        n = num_steps - i
-        if lstm_on:
-            preds = block_preds(full_blocks, hist)[:, :n].to(sdt)
-        else:
-            preds = torch.as_tensor(feed.host_rows(full_blocks, n),
-                                    dtype=sdt).to(dev)
-        preds = refine(preds, hist, carry)
-        (traj_b, _), carry = solver.run(
-            *carry, n, sync=False, preds=preds, save_every=se_run,
-        )
-        write_seg(traj_b)
+    if stacked_ok:
+        if hybrid_on:
+            # the residual history: the warm-up's rows minus the base at
+            # the same steps, evaluated on the host in float64
+            h0 = h0 - feed.rows_at(np.arange(n_sync - h0.shape[1], n_sync,
+                                             dtype=np.float64))
+        # the device-resident trailing window: the models' encoder input
+        # and the smoothing's front edge
+        hist = torch.as_tensor(h0, dtype=hdt).to(dev)
+        for b in range(full_blocks):
+            blockpred, base = block_preds(b, hist)
+            preds = refine(blockpred.to(sdt), hist, carry)
+            (traj_b, shared_b), carry = sp.stacked_run(
+                *carry, block, sync=False, preds=preds, record="all",
+                save_every=se_run,
+            )
+            roll = shared_b - base.to(shared_b.dtype) if hybrid_on \
+                else shared_b
+            hist = torch.cat([hist, roll.to(hdt)], dim=1)[:, -W:]
+            write_seg(traj_b)
+            if verbose:
+                print(f"[online] step {n_sync + (b + 1) * block}/{num_steps}")
+        i = n_sync + full_blocks * block
+        if i < num_steps:
+            # ragged tail (< one block): the first rows of a full block's
+            # model prediction, host float64 expfit rows
+            n = num_steps - i
+            blockpred, _ = block_preds(full_blocks, hist, n)
+            preds = refine(blockpred[:, :n].to(sdt), hist, carry)
+            (traj_b, _), carry = solver.run(
+                *carry, n, sync=False, preds=preds, save_every=se_run,
+            )
+            write_seg(traj_b)
+    else:
+        carry = _per_rank_blocks(cfg, ctx, models, carry, h0, n_sync,
+                                 se_run, write_seg, refine, verbose)
     synchronize(dev)
     tprof["blocks_s"] = time.perf_counter() - t_blocks
     elapsed = time.perf_counter() - t_start
@@ -461,7 +589,9 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         seconds=round(elapsed, 3),
         steps_per_sec=round(num_steps / elapsed, 1),
         comm_free_fraction=round((num_steps - n_sync) / num_steps, 4),
-        stacked_predictor=True,
+        stacked_predictor=bool(stacked_ok),
+        arch=arch,
+        ensemble=ens,
         n_parts=P,
         warmup_s=round(tprof["warmup_s"], 3),
         blocks_s=round(tprof["blocks_s"], 3),
@@ -478,3 +608,89 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     for r in range(P):
         save_displacement(store.modeled_h5(r), rank_trajectory(ctx, traj, r))
     return ctx
+
+
+def _per_rank_blocks(cfg, ctx, models, carry, h0, n_sync, se_run,
+                     write_seg, refine, verbose):
+    """The per-rank fallback loop, for models that do not stack (per-rank
+    models of unpadded widths, or an unequal modal_dim): block by block,
+    each rank's model (its members averaged) predicts its own rows from
+    its own trailing window of the recorded shared rows (projected onto
+    its modes and back, in float64, for a modal model); consensus and the
+    anchor follow, smoothing does not (as in the JAX package). Returns
+    the carry."""
+    sp, solver, maps = ctx.sp, ctx.solver, ctx.maps
+    sur = cfg.surrogate
+    dev = ctx.device
+    fdt = _SUR_DTYPES[sur.dtype]
+    P, S3 = sp.n_parts, sp.sld.shape[1]
+    W = sur.n_past * sur.filter_size
+    num_steps, block = cfg.solver.num_steps, sur.block_size
+    if sur.pred_smooth and verbose:
+        print("[online] WARNING: per-rank fallback path ignores "
+              "pred_smooth (only honored on the stacked fast path)")
+    as_dev = lambda a: torch.as_tensor(  # noqa: E731
+        np.array(a, np.float64), dtype=fdt).to(dev)
+    nets = []
+    for m in models:
+        arrays = m.params if m.ens > 1 else {k: v[None]
+                                             for k, v in m.params.items()}
+        nets.append((stacked_net(arrays, m.arch, sur.n_past, fdt, dev),
+                     as_dev(np.broadcast_to(m.smax, (m.ens,) + np.shape(
+                         m.smax))), as_dev(np.broadcast_to(
+                             m.smin, (m.ens,) + np.shape(m.smin)))))
+
+    def predict(r, window, fm):
+        """Rank r's (n_f*n_s, D_in) block from its (W, D_in) window, the
+        mean over its members."""
+        net, mx, mn = nets[r]
+        E = models[r].ens
+        h = as_dev(window)[None].expand(E, -1, -1)
+        fmv = None if fm is None else as_dev(fm)[None].expand(E, -1)
+        with torch.no_grad():
+            out = phase_interleaved_predict_stacked(
+                net, h, mx, mn, sur.n_past, sur.n_future, sur.filter_size,
+                feat_mask=fmv)
+        return out.mean(0).cpu().numpy().astype(np.float64)
+
+    hist = h0
+    i = n_sync
+    while i < num_steps:
+        n = min(block, num_steps - i)
+        preds = np.zeros((P, n, S3))
+        for r, m in enumerate(models):
+            Dr = 3 * len(maps.shared_nodes[r])
+            if Dr == 0:
+                continue
+            D_in = m.input_size
+            if m.modal is not None:
+                mu, basis = m.modal
+                K = basis.shape[0]
+                histc = np.zeros((hist.shape[1], D_in))
+                histc[:, :K] = to_modal(hist[r, :, : mu.shape[0]], mu, basis)
+                fm = np.zeros(D_in)
+                fm[:K] = 1.0
+                rec = from_modal(predict(r, histc, fm)[:n, :K], mu, basis)
+                preds[r, :, :Dr] = rec[:, :Dr]
+                continue
+            if m.meta.get("padded_input", False):
+                # a stacked-trained model: the padded window (zeros on the
+                # pad dims before scaling) with the feature mask
+                fm = np.zeros(D_in)
+                fm[:Dr] = 1.0
+                out = predict(r, hist[r, :, :D_in], fm)
+            else:
+                out = predict(r, hist[r, :, :Dr], None)
+            preds[r, :, :Dr] = out[:n, :Dr]
+        preds = refine(torch.as_tensor(preds, dtype=sp.dtype).to(dev), None,
+                       carry)
+        (traj_b, shared_b), carry = solver.run(
+            *carry, n, sync=False, preds=preds, save_every=se_run,
+        )
+        hist = np.concatenate(
+            [hist, shared_b.cpu().numpy().astype(np.float64)], axis=1)[:, -W:]
+        write_seg(traj_b)
+        i += n
+        if verbose:
+            print(f"[online] step {i}/{num_steps}")
+    return carry

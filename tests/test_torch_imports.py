@@ -1,8 +1,9 @@
 """savtpu_torch and chip_smoke.py import, and the port's pipeline (with
-the expfit surrogate, on the Neo-Hookean box path, and with the default
-LSTM) and its ``--quick`` sweep run on the CPU, with every package the
-card's
-machine lacks blocked: JAX, flax, optax, h5py, meshio, matplotlib, and
+the expfit surrogate, on the Neo-Hookean box path, with the default
+LSTM, the hybrid, per-rank LSTMs with mixed teacher forcing and
+dropout, a seed ensemble and the linear surrogate) and its ``--quick``
+sweep run on the CPU, with every package the card's machine lacks
+blocked: JAX, flax, optax, h5py, meshio, matplotlib, and
 savtpu itself. Runs in a subprocess whose import system refuses those
 names."""
 
@@ -115,6 +116,30 @@ SCRIPT = textwrap.dedent(
     metrics = run_all.run(cfg, verbose=False, device="cpu")
     assert metrics["global_rel_l2_nonshared"] == metrics[
         "global_rel_l2_nonshared"]
+
+    # the surrogates of the surrogate slice, each through all five stages
+    for tag, kw, steps in (
+            ("hybrid", dict(arch="hybrid", modal_dim=2, expfit_order=6,
+                            cut_off=0.5), 200),
+            ("per_rank", dict(stacked=False, training_method="mtf",
+                              dropout_encoder=0.1, dropout_decoder=0.1), 90),
+            ("ensemble", dict(ensemble=2), 90),
+            ("linear", dict(arch="linear", cut_off=0.5), 90)):
+        cfg = Config()
+        cfg.workdir = {workdir!r} + f"/{{tag}}/Results"
+        cfg.model_dir = {workdir!r} + f"/{{tag}}/Distributed_save"
+        cfg.beam_cells = (6, 1, 1)
+        cfg.beam_extent = (6.0, 1.0, 1.0)
+        cfg.partition.n_parts = 2
+        cfg.solver.num_steps = steps
+        s = cfg.surrogate
+        s.n_past, s.n_future, s.filter_size = 4, 4, 5
+        s.batch_size, s.num_epochs, s.hidden_size = 2, 2, 8
+        for k, v in kw.items():
+            setattr(s, k, v)
+        metrics = run_all.run(cfg, verbose=False, device="cpu")
+        assert metrics["global_rel_l2_nonshared"] == metrics[
+            "global_rel_l2_nonshared"], tag
 
     import json
     from savtpu_torch.benchmarks import sweep

@@ -250,9 +250,40 @@ def test_fit_stacked_matches_savtpu(increment):
 
 
 def test_fit_stacked_refuses_what_is_not_ported():
+    """Mixed teacher forcing, dropout and the linear arch are ported. The
+    stacked fit decodes recursively whatever the method and dropouts say,
+    as savtpu's fit_stacked does (bit for bit the recursive fit); the
+    linear arch fits ridge maps. What stays refused: stage 4's resync
+    blocks and checkpoints, and what savtpu's trainers refuse (a
+    stochastic decode over chained windows, targets of the wrong
+    length)."""
+    from savtpu_torch.models.linear import StackedLinear
+    from savtpu_torch.models.training import fit
+    from savtpu_torch.pipeline import online_predictor
+
     X, Y, fm = _fit_inputs()
-    for kw in ({"training_method": "mtf"}, {"dropout_encoder": 0.1},
-               {"arch": "linear"}):
-        cfg = TSur(n_past=4, n_future=3, num_epochs=1, **kw)
+    base = dict(n_past=4, n_future=3, num_epochs=2, hidden_size=5,
+                dtype="float64")
+    ref, h_ref = fit_stacked(TSur(**base), X, Y, fm, device="cpu",
+                             log_every=0)
+    for kw in ({"training_method": "mtf"}, {"dropout_encoder": 0.1}):
+        m, h = fit_stacked(TSur(**base, **kw), X, Y, fm, device="cpu",
+                           log_every=0)
+        for a, b in zip(m.arrays().values(), ref.arrays().values()):
+            np.testing.assert_array_equal(a, b)
+    m, h = fit_stacked(TSur(**base, arch="linear"), X, Y, fm, device="cpu",
+                       log_fn=lambda s: None)
+    assert isinstance(m, StackedLinear) and h["val_loss"].shape == (1, 2)
+    with pytest.raises(ValueError):
+        fit(TSur(**base, training_method="mtf", rollout_windows=2),
+            X[0], np.concatenate([Y[0], Y[0]], axis=1), device="cpu")
+    with pytest.raises(ValueError):
+        fit_stacked(TSur(**base), X, Y[:, :, :2], fm, device="cpu")
+    for attr, val in (("resync_blocks", 2), ("ckpt_every", 100)):
+        from savtpu_torch.config import Config
+
+        c = Config()
+        setattr(c.surrogate if attr == "resync_blocks" else c.solver, attr,
+                val)
         with pytest.raises(NotImplementedError):
-            fit_stacked(cfg, X, Y, fm, device="cpu")
+            online_predictor._check_supported(c)

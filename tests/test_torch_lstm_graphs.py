@@ -15,7 +15,7 @@ import torch
 
 from savtpu_torch.config import SurrogateConfig as TSur
 from savtpu_torch.models.lstm import StackedSeq2Seq
-from savtpu_torch.models.training import fit_stacked
+from savtpu_torch.models.training import fit, fit_stacked
 
 torch.set_num_threads(1)
 
@@ -96,3 +96,28 @@ def test_cuda_replayed_epochs_equal_eager_epochs(dtype):
         c, hc = fit_stacked(cfg, X, Y, fm, device="cpu", log_every=0)
         for u, v in zip(a.arrays().values(), c.arrays().values()):
             assert np.abs(u - v).max() <= 1e-10 * np.abs(v).max()
+
+
+@pytest.mark.gpu
+def test_cuda_per_rank_replayed_epochs_equal_eager():
+    """Per-rank epochs (``fit``) with mixed teacher forcing and dropout,
+    the port's own draws, a ragged tail batch and batched validation:
+    the graph replays give the eager epochs' bits on the card, and agree
+    with the CPU in float64."""
+    dev = _card()
+    X, Y, _ = _fit_inputs(G=23)
+    Xtr, Ytr, Xva, Yva = X[1, :17], Y[1, :17], X[1, 17:], Y[1, 17:]
+    cfg = TSur(n_past=4, n_future=3, hidden_size=6, batch_size=5,
+               num_epochs=4, dtype="float64", training_method="mtf",
+               dropout_encoder=0.2, dropout_decoder=0.2)
+    a, ha = fit(cfg, Xtr, Ytr, Xva, Yva, device=dev, log_every=0,
+                replay=True)
+    b, hb = fit(cfg, Xtr, Ytr, Xva, Yva, device=dev, log_every=0,
+                replay=False)
+    c, hc = fit(cfg, Xtr, Ytr, Xva, Yva, device="cpu", log_every=0)
+    for k in ha:
+        assert ha[k] == hb[k], k
+    for u, v, w in zip(a.arrays().values(), b.arrays().values(),
+                       c.arrays().values()):
+        np.testing.assert_array_equal(u, v)
+        assert np.abs(u - w).max() <= 1e-10 * np.abs(w).max()

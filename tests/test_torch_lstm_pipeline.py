@@ -169,14 +169,15 @@ def test_stage3_on_savtpu_traces(savtpu_run, tmp_path):
 
 
 def test_stage3_and_stage4_refuse_what_is_not_ported(tmp_path):
+    """What stays refused: stage 4's resync blocks and checkpoints. The
+    surrogate settings ported since (per-rank models, seed ensembles,
+    the linear and hybrid archs, mixed teacher forcing) pass stage 4's
+    check (their runs are held to savtpu's in
+    tests/test_torch_{per_rank,ensemble,linear,hybrid}.py); stage 3
+    refuses what savtpu's refuses: an unknown arch, a hybrid without
+    modes, an ensemble of ridge maps."""
     tc = _cfg(TConfig, tmp_path, "float32", False)
-    for attr, val in (("stacked", False), ("ensemble", 2),
-                      ("arch", "linear"), ("arch", "hybrid")):
-        c = _cfg(TConfig, tmp_path, "float32", False)
-        setattr(c.surrogate, attr, val)
-        with pytest.raises(NotImplementedError):
-            model_training.run(c, verbose=False, device="cpu")
-    for attr, val in (("resync_blocks", 2), ("ensemble", 2)):
+    for attr, val in (("resync_blocks", 2),):
         c = _cfg(TConfig, tmp_path, "float32", False)
         setattr(c.surrogate, attr, val)
         with pytest.raises(NotImplementedError):
@@ -184,6 +185,18 @@ def test_stage3_and_stage4_refuse_what_is_not_ported(tmp_path):
     tc.solver.ckpt_every = 100
     with pytest.raises(NotImplementedError):
         online_predictor._check_supported(tc)
+    for attr, val in (("stacked", False), ("ensemble", 2),
+                      ("arch", "linear"), ("arch", "hybrid"),
+                      ("training_method", "mtf"), ("dropout_encoder", 0.1)):
+        c = _cfg(TConfig, tmp_path, "float32", False)
+        setattr(c.surrogate, attr, val)
+        online_predictor._check_supported(c)
+    for kw in ({"arch": "gru"}, {"arch": "hybrid", "modal_dim": 0}):
+        c = _cfg(TConfig, tmp_path, "float32", False)
+        for k, v in kw.items():
+            setattr(c.surrogate, k, v)
+        with pytest.raises(ValueError):
+            model_training.run(c, verbose=False, device="cpu")
 
 
 def test_smooth_preds_matches_savtpu():
