@@ -17,10 +17,11 @@ within about 560 s: 300 until the unstructured paths came);
 expfit fit past the load ramp with margin; 100,000 published);
 ``--surrogate-epochs`` the training epochs of the hybrids (nh_box_96's
 and tube_hybrid's residual LSTMs, default 100); ``--leg-epochs`` those
-of the default run's ensemble and per-rank legs (default 50, 100 until
-the unstructured paths came); ``--tube-steps`` tube_hybrid's depth
-(default 60,000, which clears its load ramp by 352 stored rows; 100,000
-published). The stage-3 epoch timing of phase 4 replays 10 epochs (20
+of the default run's ensemble and per-rank legs (default 30: 100 until
+the unstructured paths came, 50 until the solver-options paths did;
+their stages 4-5 run the first 30,000 of its 100,000 steps);
+``--tube-steps`` tube_hybrid's depth (default 60,000, which clears its
+load ramp by 352 stored rows; 100,000 published). The stage-3 epoch timing of phase 4 replays 10 epochs (20
 until the unstructured paths came).
 
 Phases, each reported with its seconds and the running total against a
@@ -78,7 +79,18 @@ Phases, each reported with its seconds and the running total against a
    (full rings) and 4x48x256 in 64 (seam-wrapped parts; control: each
    part's last theta column of cells dropped), and 200 exchanged steps
    at 4x48x256/64 with the seam-wrapped grid exchange against psum
-   (control: the seam pair dropped), each within 1e-12;
+   (control: the seam pair dropped), each within 1e-12; then the
+   solver-options slice in float64: the ell and ebe forces at the
+   sweep's 96x8x8/64 against the dense K d (controls: ell columns
+   shifted by one node, one ebe element dropped), 200 exchanged steps
+   with the permute exchange against psum at 48x4x4/8 (control: its last
+   round dropped), each within 1e-12; the blend's endpoints, plain and
+   compensated (w = 1 the exchanged run, w = 0 the comm-free overwrite,
+   1e-12; control w = 1/2), and blended, ell, ebe and permute runs
+   replayed from CUDA graphs against the eager loop, bit for bit; the
+   unramped load's ghost step on the card against the CPU, dense on the
+   default beam (1e-12) and CG on a 42x6x6 beam of 6,321 DOFs (1e-10;
+   control: the CG stopped at half its iterations);
 3. the paths: the slice, the five-stage pipeline (96x8x8 beam, 16 RCB
    parts, float32 compensated, banded, expfit modal-8 surrogate, 9,000
    steps) through ``api.Simulation(cfg).run_all``'s stages, with the K3
@@ -94,10 +106,10 @@ Phases, each reported with its seconds and the running total against a
    steps, the training cut to ``--lstm-epochs``: stage seconds, epochs/s
    and Adam steps/s, the rel-L2, the warm-up rows equal to stage 1's bit
    for bit; and its stage 4 again from a copy in fint_mode "pallas",
-   where K1 must launch once a step and the result stay within 1e-5 of
-   the dense run; then stages 3-5 on its stage 1-2 artifacts again with
-   the linear surrogate, a seed ensemble of 2 and per-rank LSTMs with
-   mixed teacher forcing and dropout (``default_config_*``: stage
+   over its first 21,000 steps, where K1 must launch once a step and the
+   result stay within 1e-5 of the dense run; then stages 3-5 on its
+   stage 1-2 artifacts again with the linear surrogate, a seed ensemble
+   of 2 and per-rank LSTMs with mixed teacher forcing and dropout (``default_config_*``: stage
    seconds, epochs/s, ridge lambdas, rel-L2, warm-up rows bit for bit);
    and nh_box_96 (96x8x8, 16 box parts, Neo-Hookean on the stencil, the
    grid exchange, float32 compensated, expfit order 16 modal 16 on the
@@ -117,7 +129,21 @@ Phases, each reported with its seconds and the running total against a
    at z = 0, 8 RCB parts, dense, float32 compensated, the stacked hybrid
    with expfit order 16 modal 16, cut-off 0.75, consensus on, 60,000
    steps), each with its stage seconds, rates, rel-L2 globally and per
-   rank, warm-up rows bit for bit and K1-K4 launches counted from 0;
+   rank, warm-up rows bit for bit and K1-K4 launches counted from 0; and
+   the solver-options slice: ``slice_resync`` (the slice's stage 4 again
+   from its stage 1-3 artifacts with ``resync_blocks = 1``: one K3 block,
+   one blended exchanged block without a kernel, warm-up rows bit for
+   bit, the rel-L2 beside the slice's), ``checkpoint_resume`` (the
+   stage-1 command line on the default beam at 15,000 steps with
+   ``--ckpt-every 5000``, killed after its checkpoint at step 10,000 and
+   resumed with ``--resume``, and slice_resync's stage 4 with
+   checkpoints killed after its warm-up checkpoint and resumed: both bit
+   for bit against uninterrupted runs, the checkpoints gone),
+   ``unramped_beam`` (the default beam with ``material.ramped = False``
+   through stage 1 at 5,000 steps: the ghost step nonzero, the run
+   finite) and the sweep's ell and permute cases (96x8x8/64 ell,
+   48x4x4/8 and 96x8x8/64 dense permute, 192x12x12/64 banded permute
+   with K4 once per comm-free run; 384x16x16/256 left out for time);
 4. kernel timing with CUDA events: kernel, plain version, bound (and for
    K2, K3 and K4 the floor of re-reading the operator from HBM every
    step), the plan K3 and K4 ran with, the PyTorch call that computes
@@ -176,8 +202,18 @@ NH_STEPS = 50_000
 # cut from the published 3,450
 SURROGATE_EPOCHS = 100
 # training epochs of the default run's ensemble and per-rank legs (100
-# until the unstructured slice took 25 s of them)
-LEG_EPOCHS = 50
+# until the unstructured slice took 25 s of them, 50 until the
+# solver-options slice took 12 s more)
+LEG_EPOCHS = 30
+# the depth of the default run's second, pallas-mode stage 4: the warm-up
+# and six whole 3,000-step blocks (100,000 until the solver-options slice
+# needed its time; most of it went to compressed .npz writes)
+K1_LEG_STEPS = 21_000
+# the depth of the surrogate legs' stages 4-5 on the default run's stage
+# 1-2 artifacts: the warm-up and nine whole 3,000-step blocks (100,000
+# until the sweep's 96x8x8/64 permute check and run-to-run spread needed
+# the time; their stage 4 was mostly compressed .npz writes)
+LEG_STEPS = 30_000
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s off the
 # tensor cores
 PEAK_BYTES = 3.35e12
@@ -1376,7 +1412,8 @@ def compare_runs(cfg, store, steps, save_every):
     """The sync-avoiding run against the exchanged one, from their
     artifacts: per-rank and whole non-shared rel-L2 over the comm-free
     window, and the warm-up rows' largest relative difference and
-    whether they are equal bit for bit."""
+    whether they are equal bit for bit. A stage 4 run shorter than stage
+    1 is held to stage 1's first ``steps`` rows."""
     import numpy as np
 
     from savtpu_torch.io.artifacts import load_displacement
@@ -1386,7 +1423,8 @@ def compare_runs(cfg, store, steps, save_every):
     warm_equal = True
     per_rank = {}
     for r in range(cfg.partition.n_parts):
-        exact = load_displacement(store.dynamics_h5(r))
+        exact = load_displacement(store.dynamics_h5(r))[
+            :, : steps // save_every]
         model = load_displacement(store.modeled_h5(r))
         if (exact.shape != model.shape
                 or exact.shape[1] != steps // save_every):
@@ -1463,26 +1501,31 @@ def run_lstm_path(root: Path, dev, epochs, leg_epochs):
         "warmup_rows_equal": warm_equal,
         "warmup_rows_max_rel_diff": warm_err,
     }
-    # K1 on the same path: stage 4 again, from a copy, in pallas mode
+    # K1 on the same path: stage 4 again, from a copy, in pallas mode,
+    # over its first K1_LEG_STEPS steps (whole blocks: the first rows of
+    # the dense run's stage 4)
     shutil.copytree(root / "dense", root / "pallas")
     cfg_k1 = lstm_config(root / "pallas", epochs, fint_mode="pallas")
+    cfg_k1.solver.num_steps = k1_steps = K1_LEG_STEPS
     batched_fint_matvec.launches = 0
     online_predictor.run(cfg_k1, verbose=False, device=dev)
     k1 = batched_fint_matvec.launches
     st_k1 = ArtifactStore(cfg_k1.workdir, cfg_k1.model_dir,
                           cfg_k1.surrogate.run_tag())
     k1_rel = max(rel_max(load_displacement(st_k1.modeled_h5(r)),
-                         load_displacement(store.modeled_h5(r)))
+                         load_displacement(store.modeled_h5(r))[
+                             :, : k1_steps // se])
                  for r in range(cfg.partition.n_parts))
-    res.update(k1_leg_launches=k1, k1_leg_vs_dense_max_rel=k1_rel,
+    res.update(k1_leg_steps=k1_steps, k1_leg_launches=k1,
+               k1_leg_vs_dense_max_rel=k1_rel,
                k1_leg_stage4=stage_events(cfg_k1)["stage4_online"][
                    "seconds"])
     rel = [metrics["global_rel_l2_nonshared"], commfree, *per_rank.values()]
     res["failures"] = [msg for bad, msg in (
         (not all(math.isfinite(x) for x in rel), f"non-finite rel-L2 {rel}"),
         (not warm_equal, "stage-4 warm-up rows differ from stage 1"),
-        (k1 != steps, f"K1 launched {k1} times in the pallas stage 4, "
-                      f"not once a step ({steps})"),
+        (k1 != k1_steps, f"K1 launched {k1} times in the pallas stage 4, "
+                         f"not once a step ({k1_steps})"),
         (not k1_rel <= 1e-5, "the pallas stage 4 departs from the dense "
                              "one beyond 1e-5"),
     ) if bad]
@@ -1651,7 +1694,8 @@ def check_nh_stencil_vs_cpu(dev, sizes=((8, 4, 4), (96, 8, 8))):
         prob, maps, cell = box_setup(cells)
         card = ShardedProblem.build(prob, maps, material=mat, device=dev)
         cpu = ShardedProblem.build(prob, maps, material=mat,
-                                   nh_stencil="off", nh_gather="incident")
+                                   nh_stencil="off", nh_gather="incident",
+                                   device="cpu")
         lin = ShardedProblem.build(prob, maps, fint_mode="stencil",
                                    device=dev)
         dg = strained(prob, cell)
@@ -1945,11 +1989,13 @@ def run_surrogate_legs(workdir: Path, dev, epochs):
     run's stage 1-2 artifacts with the linear surrogate (stacked), a seed
     ensemble of 2, and per-rank LSTMs with mixed teacher forcing and
     dropout (the per-rank fallback in stage 4), each trained ``epochs``
-    epochs. None may launch K1-K4 (the default run is dense). Returns
-    {leg: readings with "failures"}."""
+    epochs, its stages 4-5 over the first LEG_STEPS steps. None may
+    launch K1-K4 (the default run is dense). Returns {leg: readings with
+    "failures"}."""
     out = {}
     for name, kw in SURROGATE_LEGS.items():
         cfg = lstm_config(workdir, epochs)
+        cfg.solver.num_steps = LEG_STEPS
         for k, v in kw.items():
             setattr(cfg.surrogate, k, v)
         steps, se = cfg.solver.num_steps, cfg.solver.save_every
@@ -1962,6 +2008,7 @@ def run_surrogate_legs(workdir: Path, dev, epochs):
         s3 = [r for r in recs if r["event"].startswith("stage3_train")]
         s3 = s3[-cfg.partition.n_parts:] if name == "per_rank_mtf" else s3[-1:]
         res = {"epochs": epochs if name != "linear" else None,
+               "steps": steps,
                **path_readings(cfg, metrics, times, steps, se),
                "stage3": [{k: r.get(k) for k in (
                    "seconds", "train_s", "capture_s", "adam_steps",
@@ -2118,7 +2165,8 @@ def check_nh_window_vs_cpu(dev, irr):
                                     nh_stencil="off", nh_gather="window",
                                     device=dev)
         cpu = ShardedProblem.build(prob, maps, material=mat,
-                                   nh_stencil="off", nh_gather="incident")
+                                   nh_stencil="off", nh_gather="incident",
+                                   device="cpu")
         dg = smooth_strain(prob)
         want = by_global_dof(cpu, cpu._fint_stacked(cpu.localize(dg)),
                              prob.ndof)
@@ -2201,7 +2249,8 @@ def check_tube_stencil(dev, big):
         # Neo-Hookean: stencil on the card vs incident list on the CPU
         card = ShardedProblem.build(prob, maps, material=mat, device=dev)
         cpu = ShardedProblem.build(prob, maps, material=mat,
-                                   nh_stencil="off", nh_gather="incident")
+                                   nh_stencil="off", nh_gather="incident",
+                                   device="cpu")
         want = by_global_dof(cpu, cpu._fint_stacked(cpu.localize(dg)),
                              prob.ndof)
         ctl = tube_control(card)
@@ -2410,6 +2459,566 @@ def window_profiles(dev, irr, steps=300):
         out[gather] = stepper_profile(sp, dev, steps=steps)
         del sp
     return out
+
+
+# ---- the solver-options slice: ell and ebe forces, the permute
+# exchange, blended resync, the unramped ghost step, checkpoints ----
+OPT_TOL = 1e-12
+# the sweep's cases of the slice: (mesh, parts, mode, exchange). The
+# 384x16x16/256 permute case (590k tets) stays out for time
+OPTIONS_SWEEP = (("96x8x8", 64, "ell", "psum"),
+                 ("48x4x4", 8, "dense", "permute"),
+                 ("96x8x8", 64, "dense", "permute"),
+                 ("192x12x12", 64, "banded", "permute"))
+# the stage-1 command line's depth on the default beam, and its
+# checkpoint cadence (the published depth is 100,000 steps)
+CKPT_STEPS = 15_000
+CKPT_EVERY = 5_000
+# unramped_beam's depth
+UNRAMPED_STEPS = 5_000
+
+
+class Kill(RuntimeError):
+    """An injected kill (checkpoint_resume)."""
+
+
+def rcb_setup(cells, parts):
+    """A float64 beam of ``cells`` (length nx/ny, as the sweep's) and its
+    RCB partition maps."""
+    from savtpu_torch.mesh import beam_mesh
+
+    mesh = beam_mesh(*cells, extent=(cells[0] / cells[1], 1.0, 1.0))
+    return mesh_setup(mesh, parts, "rcb")
+
+
+def check_ell_ebe_vs_dense(dev, cells=(96, 8, 8), parts=64):
+    """The ell and ebe forces on the card against the dense K d at the
+    sweep's 96x8x8/64, float64, on a seeded displacement (all three keep
+    the first-touch local order). Limit 1e-12 of the max. Controls: ell
+    with every column node shifted by one, ebe with one element dropped;
+    each must be rejected."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from savtpu_torch.parallel import ShardedProblem
+
+    prob, maps = rcb_setup(cells, parts)
+    sps = {m: ShardedProblem.build(prob, maps, fint_mode=m,
+                                   dtype=torch.float64, device=dev)
+           for m in ("dense", "ell", "ebe")}
+    ell, ebe = sps["ell"], sps["ebe"]
+    d = sps["dense"].localize(np.random.default_rng(SEED).standard_normal(
+        prob.ndof))
+    want = sps["dense"]._fint_stacked(d)
+    L = (ell.DL - 1) // 3
+    cols = ell.ell_cols
+    ctl_ell = dataclasses.replace(
+        ell, ell_cols=torch.where(cols < L, (cols + 1) % L, cols))
+    Ke = ebe.Ke.clone()
+    Ke[0, 0] = 0.0
+    ctl_ebe = dataclasses.replace(ebe, Ke=Ke)
+    res = {"cells": list(cells), "parts": parts, "DL": ell.DL,
+           "ell_width": int(cols.shape[2]),
+           "ebe_incident_width": int(ebe.nh_gather.shape[2]),
+           "limit": OPT_TOL,
+           "ell_max_rel": rel_max(ell._fint_stacked(d), want),
+           "ebe_max_rel": rel_max(ebe._fint_stacked(d), want),
+           "ell_control_max_rel": rel_max(ctl_ell._fint_stacked(d), want),
+           "ebe_control_max_rel": rel_max(ctl_ebe._fint_stacked(d), want)}
+    res["failures"] = [msg for bad, msg in (
+        (not res["ell_max_rel"] <= OPT_TOL, "the ell force departs from K d"),
+        (not res["ebe_max_rel"] <= OPT_TOL, "the ebe force departs from K d"),
+        (not res["ell_control_max_rel"] > OPT_TOL,
+         "the check does not reject shifted ell columns"),
+        (not res["ebe_control_max_rel"] > OPT_TOL,
+         "the check does not reject a dropped element"),
+    ) if bad]
+    return res
+
+
+def check_permute_vs_psum(dev, cells=(48, 4, 4), parts=8, steps=200,
+                          min_owners=2):
+    """200 exchanged steps on the card with the permute exchange against
+    the same run with psum, float64, dense, at one of the sweep's meshes
+    (48x4x4/8, and 96x8x8/64, where a shared node has more than two
+    owners and so sums contributions over several rounds in the JAX
+    package's round order), from a seeded displacement; both step from
+    CUDA graphs. Limit 1e-12 of the trajectory's max. The control, the
+    permute exchange with its last round dropped, must be rejected; the
+    most owners of a shared node must reach ``min_owners``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from savtpu_torch.parallel import ShardedProblem
+
+    prob, maps = rcb_setup(cells, parts)
+    sps = {ex: ShardedProblem.build(prob, maps, fint_mode="dense",
+                                    exchange_mode=ex, dtype=torch.float64,
+                                    device=dev)
+           for ex in ("psum", "permute")}
+    pm = sps["permute"]
+    ctl = dataclasses.replace(pm, **{k: getattr(pm, k)[:, :-1] for k in (
+        "nx_pack", "nx_unpack", "nx_mask", "nx_src")})
+    dg = 1e-3 * np.random.default_rng(SEED).standard_normal(prob.ndof)
+    traj = {}
+    for name, sp in (*sps.items(), ("control", ctl)):
+        d0 = sp.localize(dg)
+        (traj[name], _), _ = sp.stacked_run(d0, d0, 0.0, steps, sync=True,
+                                            record="traj")
+    owners = np.bincount(np.concatenate(maps.shared_nodes))
+    res = {"cells": list(cells), "parts": parts, "steps": steps,
+           "rounds": int(pm.nx_pack.shape[1]),
+           "buffer": int(pm.nx_pack.shape[2]),
+           "max_owners": int(owners.max()),
+           "nodes_over_two_owners": int((owners > 2).sum()),
+           "limit": OPT_TOL,
+           "max_rel": rel_max(traj["permute"], traj["psum"]),
+           "control_max_rel": rel_max(traj["control"], traj["psum"])}
+    res["failures"] = [msg for bad, msg in (
+        (not res["max_owners"] >= min_owners,
+         f"no shared node has {min_owners} owners"),
+        (not res["max_rel"] <= OPT_TOL,
+         "the permute exchange departs from psum"),
+        (not res["control_max_rel"] > OPT_TOL,
+         "the check does not reject a dropped permute round"),
+    ) if bad]
+    return res
+
+
+def smoothstep(n, dtype, dev):
+    import torch
+
+    t = torch.linspace(0.0, 1.0, n, dtype=dtype, device=dev)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def check_blend(dev, cells=(48, 4, 4), parts=8, steps=200):
+    """The blend's endpoints on the card, float64, dense, plain and
+    compensated steppers: w = 1 against the exchanged run (the free
+    dynamics) and w = 0 against the comm-free overwrite, limit 1e-12 of
+    the max (the plain stepper's bit for bit); a constant w = 1/2 must be
+    rejected by both. Then the smoothstep ramp replayed from CUDA graphs
+    against the eager loop, bit for bit, in float32."""
+    import torch
+
+    from savtpu_torch.parallel import ShardedProblem
+
+    prob, maps = rcb_setup(cells, parts)
+    res = {"cells": list(cells), "parts": parts, "steps": steps,
+           "limit": OPT_TOL}
+    failures = []
+    for comp in (False, True):
+        sp = ShardedProblem.build(prob, maps, fint_mode="dense",
+                                  dtype=torch.float64, compensated=comp,
+                                  device=dev)
+        d0, dn, t0, preds = stepper_inputs(sp, steps)
+        one = torch.ones(steps, dtype=sp.dtype, device=dev)
+
+        def run(sync, blend=None, p=preds):
+            return sp.stacked_run(d0, dn, t0, steps, sync=sync, preds=p,
+                                  blend=blend, record="traj")[0][0]
+
+        free, over = run(True, p=None), run(False)
+        b1, b0 = run(True, one), run(False, 0.0 * one)
+        h1, h0 = run(True, 0.5 * one), run(False, 0.5 * one)
+        tag = "compensated" if comp else "plain"
+        res[tag] = {
+            "w1_vs_free_max_rel": rel_max(b1, free),
+            "w0_vs_overwrite_max_rel": rel_max(b0, over),
+            "w1_equal": bool(torch.equal(b1, free)),
+            "w0_equal": bool(torch.equal(b0, over)),
+            "control_max_rel": min(rel_max(h1, free), rel_max(h0, over))}
+        r = res[tag]
+        failures += [f"{tag}: {msg}" for bad, msg in (
+            (not r["w1_vs_free_max_rel"] <= OPT_TOL,
+             "w = 1 departs from the free dynamics"),
+            (not r["w0_vs_overwrite_max_rel"] <= OPT_TOL,
+             "w = 0 departs from the overwrite"),
+            (not comp and not (r["w1_equal"] and r["w0_equal"]),
+             "the plain stepper's endpoints are not bit for bit"),
+            (not r["control_max_rel"] > OPT_TOL,
+             "the check does not reject w = 1/2"),
+        ) if bad]
+    sp32 = ShardedProblem.build(prob, maps, fint_mode="dense",
+                                dtype=torch.float32, compensated=True,
+                                device=dev)
+    d0, dn, t0, preds = stepper_inputs(sp32, 250)
+    kw = dict(sync=True, preds=preds, record="all", save_every=5,
+              blend=smoothstep(250, sp32.dtype, dev))
+    a = sp32._stacked_run_eager(d0, dn, t0, 250, **kw)
+    b = sp32._stacked_run_chunked(d0, dn, t0, 250, **kw)
+    torch.cuda.synchronize()
+    flat = lambda o: [o[0][0], o[0][1], *o[1]]  # noqa: E731
+    res["replay_vs_eager_max_abs"] = worst_abs(flat(a), flat(b))
+    if res["replay_vs_eager_max_abs"] != 0.0:
+        failures.append("a blended graph replay differs from the eager loop")
+    res["failures"] = failures
+    return res
+
+
+def check_options_graphs(dev, cells=(48, 4, 4), parts=8, steps=25):
+    """ell, ebe and the permute exchange (dense and banded), plain and
+    compensated float32, replayed from CUDA graphs against the eager
+    loop: sync on and off, predictions with and without the smoothstep
+    blend, save_every 1 and 5, over two full chunks and a remainder;
+    bit for bit (no atomics in the ebe fold or the permute's add)."""
+    import itertools
+
+    import torch
+
+    from savtpu_torch.parallel import ShardedProblem
+
+    prob, maps = rcb_setup(cells, parts)
+    worst, cases = 0.0, 0
+    flat = lambda o: [x for x in (o[0][0], o[0][1], *o[1])  # noqa: E731
+                      if x is not None]
+    for (mode, ex), comp in itertools.product(
+            (("ell", "psum"), ("ebe", "psum"), ("dense", "permute"),
+             ("banded", "permute")), (False, True)):
+        sp = ShardedProblem.build(prob, maps, fint_mode=mode,
+                                  exchange_mode=ex, dtype=torch.float32,
+                                  compensated=comp, device=dev)
+        d0, dn, t0, preds = stepper_inputs(sp, steps)
+        w = smoothstep(steps, sp.dtype, dev)
+        for sync, (p, b), se in itertools.product(
+                (True, False), ((None, None), (preds, None), (preds, w)),
+                (1, 5)):
+            kw = dict(sync=sync, preds=p, blend=b, record="all",
+                      save_every=se)
+            a = flat(sp._stacked_run_eager(d0, dn, t0, steps, **kw))
+            c = flat(sp._stacked_run_chunked(d0, dn, t0, steps,
+                                             graph_steps=10, **kw))
+            torch.cuda.synchronize()
+            worst = max(worst, worst_abs(a, c))
+            cases += 1
+    res = {"cases": cases, "replay_vs_eager_max_abs": worst}
+    res["failures"] = ["a graph replay differs from the eager loop"] \
+        if worst != 0.0 else []
+    return res
+
+
+def check_ghost_vs_cpu(dev):
+    """The unramped load's ghost step on the card against the CPU,
+    float64: the dense solve on the default beam (25x1x1, 312 DOFs),
+    limit 1e-12; the CG on a 42x6x6 beam (6,321 DOFs, above the dense
+    path's 6,144), limit 1e-10 (CG's 1e-12 residual), with its iteration
+    count on each device; the control, the card's CG stopped at half its
+    iterations, must be rejected."""
+    import dataclasses
+
+    import torch
+
+    from savtpu_torch.config import Config
+    from savtpu_torch.ops.element import batch_element_mkf
+    from savtpu_torch.solvers import (
+        ghost_step_init,
+        ghost_step_init_cg,
+        setup_problem,
+    )
+
+    def ghost(cells, fn, device, **kw):
+        cfg = Config()
+        cfg.beam_cells = cells
+        cfg.beam_extent = (cells[0] / cells[1], 1.0, 1.0)
+        cfg.material.ramped = False
+        prob = setup_problem(cfg)
+        mat = dataclasses.replace(prob.material, ramped=False)
+        arrays = [t.to(device) for t in batch_element_mkf(
+            prob.deg, prob.n_quad, mat, 0.0, prob.coords)]
+        z = torch.zeros(prob.ndof, dtype=torch.float64, device=device)
+        return prob.ndof, fn(*arrays, prob.edofs, prob.ndof,
+                             prob.dirichlet_dofs, z, z, prob.dt, **kw)
+
+    ndof_d, card = ghost((25, 1, 1), ghost_step_init, dev)
+    _, cpu = ghost((25, 1, 1), ghost_step_init, "cpu")
+    info_card, info_cpu, info_ctl = {}, {}, {}
+    ndof_cg, cg_card = ghost((42, 6, 6), ghost_step_init_cg, dev,
+                             info=info_card)
+    _, cg_cpu = ghost((42, 6, 6), ghost_step_init_cg, "cpu", info=info_cpu)
+    _, cg_ctl = ghost((42, 6, 6), ghost_step_init_cg, dev, info=info_ctl,
+                      maxiter=max(1, info_card["iterations"] // 2))
+    res = {"dense": {"ndof": ndof_d, "limit": OPT_TOL,
+                     "max_abs_dn": float(cpu.abs().max()),
+                     "max_rel": rel_max(card, cpu)},
+           "cg": {"ndof": ndof_cg, "limit": 1e-10,
+                  "iterations_card": info_card["iterations"],
+                  "iterations_cpu": info_cpu["iterations"],
+                  "max_rel": rel_max(cg_card, cg_cpu),
+                  "control_max_rel": rel_max(cg_ctl, cg_cpu)}}
+    res["failures"] = [msg for bad, msg in (
+        (not res["dense"]["max_rel"] <= OPT_TOL,
+         "the dense ghost step departs from the CPU's"),
+        (not res["dense"]["max_abs_dn"] > 0.0, "the ghost step is zero"),
+        (not res["cg"]["max_rel"] <= 1e-10,
+         "the CG ghost step departs from the CPU's"),
+        (not res["cg"]["control_max_rel"] > 1e-10,
+         "the check does not reject a CG stopped early"),
+    ) if bad]
+    return res
+
+
+def options_sweep_cases():
+    """The sweep's cases of the solver-options slice, as it lists them
+    (uncompensated), with its own step counts."""
+    from savtpu_torch.benchmarks import sweep
+
+    cases = {sweep.case_tag(c)[:4]: c for c in sweep.CASES
+             if sweep.case_tag(c)[:4] in OPTIONS_SWEEP
+             and not sweep.case_tag(c)[4]}
+    if sorted(cases) != sorted(OPTIONS_SWEEP):
+        raise RuntimeError(f"the sweep lacks a case of {OPTIONS_SWEEP}")
+    return [cases[k] for k in OPTIONS_SWEEP]
+
+
+def run_options_sweep(dev):
+    """The slice's sweep cases through ``bench_case``, launch counts set
+    to 0 just before each and read just after: the banded case must
+    launch K4 once per comm-free run (its untimed and timed run), the
+    others no kernel (ell, ebe and the permute exchange are tensor ops, as
+    they are XLA ops in the JAX package). Returns (rows, total launches
+    per kernel)."""
+    import torch
+
+    from savtpu_torch.benchmarks import sweep
+
+    rows, totals = [], dict.fromkeys(sweep.KERNELS, 0)
+    for case in options_sweep_cases():
+        for fn in sweep.KERNELS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        row = sweep.bench_case(*case, device=dev)
+        counts = {k: fn.launches for k, fn in sweep.KERNELS.items()}
+        expect = dict.fromkeys(sweep.KERNELS, 0)
+        if row["fint_mode"] == "banded":
+            expect["scan_comm_free_banded"] = 2
+        row.update(steps=case[5], kernel_launches=counts,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   case_s=time.perf_counter() - t0)
+        rows.append(row)
+        if counts != expect:
+            raise RuntimeError(f"{case}: launches {counts}, expected "
+                               f"{expect}")
+        for k in totals:
+            totals[k] += counts[k]
+    return rows, totals
+
+
+def run_slice_resync(root: Path, dev, steps, dtype, slice_commfree):
+    """Stage 4 of the slice again, from a copy of its stage 1-3
+    artifacts, with ``resync_blocks = 1``: at 9,000 steps one K3 block,
+    then one blended exchanged block (no kernel), then stage 5. K3's
+    launches counted from 0; the warm-up rows equal stage 1's bit for
+    bit; the rel-L2 beside the slice's."""
+    from savtpu_torch.pipeline import online_predictor, plotter
+
+    shutil.copytree(root / "slice", root / "slice_resync")
+    cfg = slice_config(root / "slice_resync", steps, dtype)
+    cfg.surrogate.resync_blocks = 1
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    online_predictor.run(cfg, verbose=False, device=dev)
+    s4 = time.perf_counter() - t0
+    launches = linear_kernel_launches()
+    metrics = plotter.run(cfg, verbose=False)
+    res = path_readings(cfg, metrics, {"stage4_s": round(s4, 3)}, steps,
+                        SAVE_EVERY)
+    ev = stage_events(cfg)["stage4_online"]
+    block = cfg.surrogate.block_size
+    full = (steps - cfg.surrogate.i_cri - 1) // block
+    resyncs = ev["n_resync_steps"] // block
+    res.update(k1_k4_launches=launches, resync_blocks=resyncs,
+               comm_free_fraction=ev["comm_free_fraction"],
+               slice_commfree_rel_l2_nonshared=slice_commfree)
+    rel = [res["global_rel_l2_nonshared"], res["commfree_rel_l2_nonshared"]]
+    res["failures"] = [msg for bad, msg in (
+        (not all(math.isfinite(x) for x in rel), f"non-finite rel-L2 {rel}"),
+        (not res["warmup_rows_equal"],
+         "stage-4 warm-up rows differ from stage 1"),
+        (resyncs != full // 2, f"{resyncs} resync blocks"),
+        (launches["online_chunk"] != full - resyncs,
+         f"K3 launched {launches['online_chunk']} times, expected "
+         f"{full - resyncs} (none in a resync block)"),
+        (any(v for k, v in launches.items() if k != "online_chunk"),
+         f"another kernel launched: {launches}"),
+    ) if bad]
+    return cfg, res
+
+
+def modeled_rows(cfg, what="modeled_h5"):
+    """Every rank's stored trajectory of ``what``."""
+    from savtpu_torch.io.artifacts import ArtifactStore, load_displacement
+
+    st = ArtifactStore(cfg.workdir, cfg.model_dir, cfg.surrogate.run_tag())
+    return [load_displacement(getattr(st, what)(r))
+            for r in range(cfg.partition.n_parts)], st
+
+
+def run_checkpoint_resume(root: Path, dev, resync_cfg, steps, dtype):
+    """Kill-and-resume, bit for bit. (1) The stage-1 command line
+    (``data_prepare.main``) on the default beam at CKPT_STEPS steps with
+    ``--ckpt-every`` CKPT_EVERY: an uninterrupted run; a run killed (an
+    injected exception in ``ShardedSolver.run``, in its third chunk) after
+    its checkpoint at step 10,000, past the 3,000-step warm-up; the same
+    command with
+    ``--resume``. (2) slice_resync's stage 4 with ``ckpt_every``, killed
+    in its first comm-free block (after the warm-up checkpoint) and run
+    again: its modeled rows against slice_resync's. Each checkpoint
+    directory must be gone after the run that completes."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from savtpu_torch.config import Config
+    from savtpu_torch.io.artifacts import ArtifactStore
+    from savtpu_torch.parallel import ShardedSolver
+    from savtpu_torch.pipeline import data_prepare, online_predictor
+    from savtpu_torch.pipeline.common import build_context
+    from savtpu_torch.utils.checkpoint import load_solver_state
+
+    res, failures = {"steps": CKPT_STEPS, "ckpt_every": CKPT_EVERY}, []
+    outs = {}
+    root.mkdir(parents=True, exist_ok=True)
+    for tag in ("uninterrupted", "killed"):
+        cfg = Config()
+        cfg.workdir = str(root / tag / "Results")
+        cfg.model_dir = str(root / tag / "Distributed_save")
+        cfg.to_json(root / f"{tag}.json")
+        outs[tag] = cfg
+    argv = lambda tag, *a: ["--config", str(root / f"{tag}.json"),  # noqa
+                            "--steps", str(CKPT_STEPS), "--ckpt-every",
+                            str(CKPT_EVERY), "--device", str(dev), *a]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        data_prepare.main(argv("uninterrupted", "--no-resume"))
+    res["uninterrupted_s"] = round(time.perf_counter() - t0, 3)
+    orig, calls = ShardedSolver.run, {"n": 0}
+
+    def dying(self, *a, **k):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise Kill("injected kill")
+        return orig(self, *a, **k)
+
+    ShardedSolver.run = dying
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            data_prepare.main(argv("killed"))
+    except Kill:
+        pass
+    finally:
+        ShardedSolver.run = orig
+    cfg = outs["killed"]
+    store = ArtifactStore(cfg.workdir, cfg.model_dir, cfg.surrogate.run_tag())
+    state = store.ckpt_dir("stage1") / "state.npz"
+    res["killed_at_step"] = load_solver_state(state)[3] \
+        if state.exists() else None
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        data_prepare.main(argv("killed", "--resume"))
+    res["resumed_s"] = round(time.perf_counter() - t0, 3)
+    res["resumed_log"] = [ln for ln in log.getvalue().splitlines()
+                          if "resuming" in ln]
+    outs_ok = [np.array_equal(a, b) for a, b in zip(
+        modeled_rows(outs["uninterrupted"], "dynamics_h5")[0],
+        modeled_rows(cfg, "dynamics_h5")[0])]
+    res["stage1_equal"] = all(outs_ok) and len(outs_ok) == 2
+    res["stage1_ckpt_gone"] = not store.ckpt_dir("stage1").exists()
+    n_sync = cfg.surrogate.i_cri + 1
+    failures += [msg for bad, msg in (
+        (not (res["killed_at_step"] or 0) > n_sync,
+         "stage 1 was not killed after a checkpoint past the warm-up"),
+        (not res["resumed_log"], "stage 1 did not resume"),
+        (not res["stage1_equal"],
+         "the resumed stage 1 differs from the uninterrupted run"),
+        (not res["stage1_ckpt_gone"], "stage 1 left its checkpoint"),
+    ) if bad]
+
+    # (2) stage 4 with checkpoints, from a copy of slice_resync's run
+    shutil.copytree(Path(resync_cfg.workdir).parent, root / "stage4")
+    cfg4 = slice_config(root / "stage4", steps, dtype)
+    cfg4.surrogate.resync_blocks = 1
+    cfg4.solver.ckpt_every = cfg4.surrogate.block_size
+    ctx = build_context(cfg4, device=dev)
+
+    def dying_block(*a, **k):
+        raise Kill("injected kill")
+
+    ctx.sp._online_run = dying_block
+    try:
+        online_predictor.run(cfg4, ctx=ctx, verbose=False)
+    except Kill:
+        pass
+    del ctx.sp._online_run
+    st4 = ArtifactStore(cfg4.workdir, cfg4.model_dir,
+                        cfg4.surrogate.run_tag())
+    state = st4.ckpt_dir("stage4") / "state.npz"
+    res["stage4_killed_at_step"] = load_solver_state(state)[3] \
+        if state.exists() else None
+    t0 = time.perf_counter()
+    online_predictor.run(cfg4, ctx=ctx, verbose=False)
+    res["stage4_resumed_s"] = round(time.perf_counter() - t0, 3)
+    eq = [np.array_equal(a, b) for a, b in zip(
+        modeled_rows(resync_cfg)[0], modeled_rows(cfg4)[0])]
+    res["stage4_equal"] = all(eq) and len(eq) == cfg4.partition.n_parts
+    res["stage4_ckpt_gone"] = not st4.ckpt_dir("stage4").exists()
+    failures += [msg for bad, msg in (
+        (res["stage4_killed_at_step"] != cfg4.surrogate.i_cri + 1,
+         "stage 4 was not killed after its warm-up checkpoint"),
+        (not res["stage4_equal"],
+         "the resumed stage 4 differs from slice_resync's"),
+        (not res["stage4_ckpt_gone"], "stage 4 left its checkpoint"),
+    ) if bad]
+    res["failures"] = failures
+    return res
+
+
+def run_unramped_beam(root: Path, dev, steps=UNRAMPED_STEPS):
+    """The default beam (25x1x1, 2 parts, float64, dense) with
+    ``material.ramped = False`` through stage 1: the ghost step d_{-1}
+    (the consistent-mass solve of the full load at t = 0) nonzero, the
+    run finite and moving from its first step."""
+    import numpy as np
+
+    from savtpu_torch.config import Config
+    from savtpu_torch.pipeline import data_prepare
+    from savtpu_torch.pipeline.common import build_context
+
+    cfg = Config()
+    cfg.workdir = str(root / "Results")
+    cfg.model_dir = str(root / "Distributed_save")
+    cfg.material.ramped = False
+    cfg.solver.num_steps = steps
+    t0 = time.perf_counter()
+    ctx = build_context(cfg, device=dev)
+    setup_s = time.perf_counter() - t0
+    data_prepare.run(cfg, ctx=ctx, verbose=False)
+    rows, _ = modeled_rows(cfg, "dynamics_h5")
+    ev = stage_events(cfg)
+    res = {"steps": steps, "ndof": ctx.prob.ndof,
+           "setup_s": round(setup_s, 3),
+           "ramped": ctx.sp.ramped,
+           "ghost_max_abs": float(ctx.prob.dn.abs().max()),
+           "first_row_max_abs": max(float(np.abs(r[:, 0]).max())
+                                    for r in rows),
+           "max_abs": max(float(np.abs(r).max()) for r in rows),
+           "finite": all(bool(np.isfinite(r).all()) for r in rows),
+           "stage1_s": ev["stage1_solve"]["seconds"],
+           "stage1_steps_per_s": ev["stage1_solve"]["steps_per_sec"]}
+    res["failures"] = [msg for bad, msg in (
+        (res["ramped"], "the problem is ramped"),
+        (not res["ghost_max_abs"] > 0.0, "the ghost step is zero"),
+        (not res["finite"], "non-finite trajectory"),
+        (not res["first_row_max_abs"] > 0.0,
+         "the run does not move from its first step"),
+    ) if bad]
+    return res
 
 
 def run_stages(cfg, dev, first: int = 1):
@@ -2695,6 +3304,22 @@ def main(argv=None) -> int:
             raise RuntimeError(f"tube_grid_vs_psum: {res['failures']}")
         del big
 
+        # the solver-options slice: the ell and ebe forces, the permute
+        # exchange, the blend, their graph replays, the ghost step
+        for name, check in (("ell_ebe_vs_dense", check_ell_ebe_vs_dense),
+                            ("permute_vs_psum", check_permute_vs_psum),
+                            ("permute_vs_psum_96x8x8_p64",
+                             lambda d: check_permute_vs_psum(
+                                 d, (96, 8, 8), 64, min_owners=3)),
+                            ("blend_endpoints", check_blend),
+                            ("options_graph_replays", check_options_graphs),
+                            ("ghost_step_vs_cpu", check_ghost_vs_cpu)):
+            res = check(dev)
+            torch.cuda.synchronize()
+            clock.phase(2, name, **res)
+            if res["failures"]:
+                raise RuntimeError(f"{name}: {res['failures']}")
+
         # ---- phase 3: the slice through the user's entry points ----
         cfg = slice_config(tmp / "slice", steps, opts.dtype)
         online_chunk.launches = 0
@@ -2762,6 +3387,30 @@ def main(argv=None) -> int:
             )
         del sim
 
+        # the slice's stage 4 again with a resync block, then the
+        # checkpointed stages 1 and 4 killed and resumed, then the
+        # unramped default beam
+        resync_cfg, resync = run_slice_resync(tmp, dev, steps, opts.dtype,
+                                              commfree)
+        clock.phase(3, "slice_resync", **resync)
+        if resync["failures"]:
+            raise RuntimeError(f"slice_resync: {resync['failures']}")
+        zero_kernel_launches()
+        ckpt = run_checkpoint_resume(tmp / "ckpt", dev, resync_cfg, steps,
+                                     opts.dtype)
+        ckpt["k1_k4_launches"] = linear_kernel_launches()
+        clock.phase(3, "checkpoint_resume", **ckpt)
+        if ckpt["failures"]:
+            raise RuntimeError(f"checkpoint_resume: {ckpt['failures']}")
+        zero_kernel_launches()
+        unramped = run_unramped_beam(tmp / "unramped", dev)
+        unramped["k1_k4_launches"] = linear_kernel_launches()
+        clock.phase(3, "unramped_beam", **unramped)
+        if unramped["failures"]:
+            raise RuntimeError(f"unramped_beam: {unramped['failures']}")
+        if any(unramped["k1_k4_launches"].values()):
+            raise RuntimeError("unramped_beam launched a linear kernel")
+
         # small run: stage 4 on the GPU (kernel) against the same stage on
         # the CPU (plain version), from the same stage 1-3 artifacts
         from savtpu_torch.pipeline import online_predictor, run_all
@@ -2795,6 +3444,19 @@ def main(argv=None) -> int:
         clock.phase(3, "small_sweep_gpu_vs_cpu", max_rel=small, rtol=1e-12)
         if not max(small.values()) <= 1e-12:
             raise RuntimeError(f"small sweep: GPU vs CPU {small}")
+        # the sweep's ell and permute cases (K4 on the banded one)
+        opt_rows, opt_totals = run_options_sweep(dev)
+        for row in opt_rows:
+            clock.phase(3, f"sweep_{row['mesh']}_p{row['n_parts']}_"
+                        f"{row['fint_mode']}_{row['exchange_mode']}", **row)
+        from savtpu_torch.benchmarks.sweep import KERNELS
+
+        options_launches = {
+            "sweep_options": {fn.__name__: opt_totals[k]
+                              for k, fn in KERNELS.items()},
+            "slice_resync": resync["k1_k4_launches"],
+            "checkpoint_resume": ckpt["k1_k4_launches"],
+            "unramped_beam": unramped["k1_k4_launches"]}
 
         # the unstructured slice: irregular_96 from its binary .msh (K3
         # in stage 4), tube_hybrid from an ASCII .msh
@@ -2915,6 +3577,10 @@ def main(argv=None) -> int:
         return {path: counts[fn_name]
                 for path, counts in unstructured_launches.items()}
 
+    def on_options_paths(fn_name):
+        return {path: counts.get(fn_name, 0)
+                for path, counts in options_launches.items()}
+
     print(json.dumps({"kernels": [{
         "name": "online_banded",
         "route": "cuda",
@@ -2923,6 +3589,7 @@ def main(argv=None) -> int:
         "launches": launches,
         "launches_surrogate_paths": on_surrogate_paths("online_chunk"),
         "launches_unstructured_paths": on_unstructured_paths("online_chunk"),
+        "launches_options_paths": on_options_paths("online_chunk"),
         "irregular_96": {k: k3_irr_timing[k] for k in (
             "ms", "plain_ms", "plain_ms_runs", "launches", "max_abs_err",
             "bound_ms", "bound_by")},
@@ -2949,6 +3616,8 @@ def main(argv=None) -> int:
         "launches_surrogate_paths": on_surrogate_paths(
             "batched_fint_matvec" if name == "fint_matvec" else name),
         "launches_unstructured_paths": on_unstructured_paths(
+            "batched_fint_matvec" if name == "fint_matvec" else name),
+        "launches_options_paths": on_options_paths(
             "batched_fint_matvec" if name == "fint_matvec" else name),
     } for name, source, replaces, tag in (
         ("fint_matvec", "savtpu_torch/csrc/dense_step.cu",

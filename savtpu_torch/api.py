@@ -9,11 +9,15 @@
     sim.run_online()         # stage 4 (sync-avoiding run)
     metrics = sim.compare()  # stage 5 (rel-L2 metrics)
     # or: metrics = sim.run_all()
+    sim.solver()             # the ShardedSolver (exchanged / comm-free runs)
+    sim.steady()             # the steady displacement (P1)
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import numpy as np
 
 from .config import Config
 from .pipeline import (
@@ -24,6 +28,7 @@ from .pipeline import (
     shared_extraction,
 )
 from .pipeline.common import StageContext, build_context
+from .solvers import steady_displacement
 
 
 class Simulation:
@@ -70,3 +75,18 @@ class Simulation:
             .run_online()
             .compare()
         )
+
+    # ---- direct solver access ----
+    def solver(self):
+        """The underlying ShardedSolver (exchanged / sync-avoiding runs)."""
+        return self.ctx.solver
+
+    def steady(self) -> np.ndarray:
+        """Steady displacement vector (K d = F with the clamped face), for
+        deg=1. The JAX package's steady-only deg=2 path is not ported
+        (ROADMAP A12c)."""
+        if self.cfg.solver.deg != 1:
+            raise NotImplementedError(
+                "the steady-only P2 path (solver.deg = 2) is not ported "
+                "yet (ROADMAP A12c)")
+        return np.asarray(steady_displacement(self.ctx.prob))

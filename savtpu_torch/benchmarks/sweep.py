@@ -18,8 +18,11 @@ recorded with its error, and the process then exits with 1.
 
 Which kernels a case runs: ``pallas`` steps through K1 (one launch per
 step) when exchanged and K2 (one launch per run) when comm-free;
-``banded`` comm-free runs K4 (one launch per run); ``dense`` uses
-``torch.bmm``; the Neo-Hookean case (``nh``, the gather-free stencil on
+``banded`` comm-free runs K4 (one launch per run), with the psum or
+the permute exchange alike; ``dense`` uses ``torch.bmm``; ``ell`` (a
+gather and a 3x3 multiply-reduce) and the permute exchange (gathers and
+scatters) are plain tensor ops, as the JAX package's are XLA ops with no
+Pallas kernel; the Neo-Hookean case (``nh``, the gather-free stencil on
 its box-aligned RCB parts) runs no hand-written kernel, as the JAX
 package's runs no Pallas kernel there. Each row counts the launches of
 its case.
@@ -103,14 +106,9 @@ def case_tag(case) -> tuple:
 
 def skip_reason(case) -> Optional[str]:
     """Why the port cannot run a CASES entry yet, or None."""
-    mesh, _, mode, exchange, _ = case_tag(case)
-    if mesh == "ref_beam_256":
+    if case_tag(case)[0] == "ref_beam_256":
         return ("needs the reference repository's Mesh_info/beam_coarse.vtk,"
                 " which this repository does not hold")
-    if mode in ("ell", "ebe"):
-        return f"fint_mode {mode!r} is not ported yet (ROADMAP A12)"
-    if exchange == "permute":
-        return f"the {exchange!r} exchange is not ported yet (ROADMAP A12)"
     return None
 
 
@@ -247,6 +245,7 @@ def main(argv=None) -> int:
         print(f"[sweep] --only '{args.only}': {len(cases)} case(s)")
 
     results, skipped, failed = [], [], 0
+    t_sweep = time.perf_counter()
     for case in cases:
         mesh, parts, mode, exch, comp = case_tag(case)
         reason = skip_reason(case)
@@ -261,6 +260,7 @@ def main(argv=None) -> int:
             fn.launches = 0
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
+        t_case = time.perf_counter()
         try:
             r = bench_case(*case, device=dev)
         except Exception as e:  # record the case, keep sweeping
@@ -275,11 +275,13 @@ def main(argv=None) -> int:
             if dev.type == "cuda":
                 r["max_memory_allocated"] = torch.cuda.max_memory_allocated(
                     dev)
+        # the case's wall time, its build and untimed runs included
+        r["wall_s"] = time.perf_counter() - t_case
         results.append(r)
         print(json.dumps(r), flush=True)
 
     out = {"device": device_info(dev), "results": results,
-           "skipped": skipped}
+           "skipped": skipped, "wall_s": time.perf_counter() - t_sweep}
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(out, indent=2))
     print()

@@ -38,15 +38,18 @@ from .io.artifacts import (
 )
 from .models.lstm import CELL_KEYS
 from .ops.material import NeoHookean
+from .ops.assembly import incident_lists
 from .parallel.sharded import ShardedProblem, _owner_table
 from .pipeline.online_predictor import RankModel
+from .utils import resolve_device
 
 # ShardedProblem fields that are tensors on the device
 _FLOAT_FIELDS = ("dof_mask", "bc_mask", "lM", "F_pre", "smask", "denseK",
                  "band_Kd", "band_Kl", "nh_G", "nh_detJw", "nhs_G",
-                 "nhs_dJw")
+                 "nhs_dJw", "ell_blocks", "Ke", "nx_mask")
 _INT_FIELDS = ("sld", "sgi")
-_OPT_INT_FIELDS = ("edofs", "nh_gather", "grid_perm", "grid_inv")
+_OPT_INT_FIELDS = ("edofs", "nh_gather", "grid_perm", "grid_inv",
+                   "ell_cols", "nx_pack", "nx_unpack", "nx_src")
 _SCALARS = ("n_parts", "DL", "SD", "dt", "alpha", "ramped", "fint_mode",
             "compensated")
 # optional scalars and shape tuples of the matrix-free and grid modes
@@ -57,7 +60,7 @@ _OPT_DIMS = ("nhs_dims", "grid_pdims", "grid_ndims")
 def from_savtpu_arrays(
     sp_arrays: Dict,
     models: Iterable[Tuple[Dict, Dict]] = (),
-    device="cpu",
+    device=None,
     dtype=None,
 ):
     """Build the port's objects from savtpu state given as numpy.
@@ -65,31 +68,35 @@ def from_savtpu_arrays(
     ``sp_arrays`` maps field names of savtpu's ``ShardedProblem`` to
     values: the scalars n_parts, DL, SD, dt, alpha, ramped, fint_mode,
     compensated, the arrays local_dofs_global, dof_mask, bc_mask, lM,
-    F_pre, sld, sgi, smask, and denseK (dense and pallas modes) or
-    band_Kd/band_Kl (banded mode); pallas arrays are moved from savtpu's
-    128-padded layout to the port's (:func:`_unpad_pallas`). Fint mode
+    F_pre, sld, sgi, smask, and denseK (dense and pallas modes),
+    band_Kd/band_Kl (banded mode), ell_blocks/ell_cols (ell mode) or
+    Ke/edofs (ebe mode, whose incident lists are built here); pallas
+    arrays are moved from savtpu's 128-padded layout to the port's
+    (:func:`_unpad_pallas`). Fint mode
     "nh" takes ``nh_material`` (the NeoHookean's fields as a mapping, e.g.
     ``dataclasses.asdict(sp.nh_material)``) with nh_G, nh_detJw, nh_gather
     and edofs (the incident-list layout) or nhs_dims, nhs_G, nhs_dJw (the
     box stencil); "stencil" takes stn_lmd, stn_mu and the nhs_* fields;
     ``exchange_mode`` "grid" takes grid_pdims, grid_ndims, grid_perm and
-    grid_inv (its default is "psum"). ``models``
+    grid_inv, "permute" nx_pack, nx_unpack, nx_mask and nx_src (its
+    default is "psum"). ``models``
     holds one (params, sidecar) pair per rank: any of savtpu's stage-3
     parameter trees (or their flat arrays, :func:`params_from_savtpu`)
     with its sidecar, which gives the arch, the ensemble size and the
-    scaling constants. Returns (ShardedProblem, [RankModel])."""
+    scaling constants. The tensors go to ``device``, CUDA unless the
+    caller asks for another (``utils.resolve_device``: raises without
+    CUDA). Returns (ShardedProblem, [RankModel])."""
     missing = [k for k in _SCALARS + ("local_dofs_global",) + _INT_FIELDS
                if k not in sp_arrays]
     if missing:
         raise KeyError(f"savtpu ShardedProblem arrays lack {missing}")
-    if sp_arrays["fint_mode"] not in ("dense", "banded", "pallas", "nh",
-                                      "stencil"):
-        raise NotImplementedError(
-            f"fint_mode {sp_arrays['fint_mode']!r} is not ported yet"
-        )
+    dev = resolve_device(device)
     if sp_arrays["fint_mode"] == "pallas":
         sp_arrays = _unpad_pallas(sp_arrays)
-    dev = torch.device(device)
+    if sp_arrays["fint_mode"] == "ebe":
+        sp_arrays = {**sp_arrays, "nh_gather": incident_lists(
+            np.asarray(sp_arrays["edofs"], dtype=np.int64),
+            int(sp_arrays["DL"]))}
     dtype = dtype or torch.as_tensor(np.array(sp_arrays["lM"])).dtype
     kw = {k: sp_arrays[k] for k in _SCALARS}
     for k in _FLOAT_FIELDS:

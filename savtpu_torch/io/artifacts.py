@@ -133,6 +133,10 @@ class ArtifactStore:
         return self.workdir / "Dynamics" / f"Modeled_Local-rank-{r}.npz"
 
     # ---- helpers ----
+    def ckpt_dir(self, stage: str) -> Path:
+        """A stage's mid-run checkpoint directory (utils/checkpoint.py)."""
+        return self.workdir / "Checkpoints" / stage
+
     def save_int_csv(self, path: Path, arr) -> None:
         path.parent.mkdir(parents=True, exist_ok=True)
         np.savetxt(path, np.asarray(arr, dtype=np.int64), delimiter=",",

@@ -14,7 +14,8 @@ import torch
 def shape_function(deg: int, xi: torch.Tensor) -> torch.Tensor:
     """Basis values at parametric point xi (3,). Returns (nb,)."""
     if deg != 1:
-        raise NotImplementedError("only P1 tets are ported")
+        raise NotImplementedError(
+            "only P1 tets are ported (P2: ROADMAP A12c)")
     x, y, z = xi[0], xi[1], xi[2]
     return torch.stack([1.0 - x - y - z, x, y, z])
 
@@ -22,7 +23,8 @@ def shape_function(deg: int, xi: torch.Tensor) -> torch.Tensor:
 def shape_derivative(deg: int, xi: torch.Tensor) -> torch.Tensor:
     """Parametric gradients dN/dxi at xi. Returns (nb, 3)."""
     if deg != 1:
-        raise NotImplementedError("only P1 tets are ported")
+        raise NotImplementedError(
+            "only P1 tets are ported (P2: ROADMAP A12c)")
     return torch.tensor(
         [
             [-1.0, -1.0, -1.0],

@@ -1,9 +1,17 @@
-from .halo import PartitionMaps, build_partition_maps, rcm_reorder_maps
+from .halo import (
+    NeighborExchange,
+    PartitionMaps,
+    build_neighbor_exchange,
+    build_partition_maps,
+    rcm_reorder_maps,
+)
 from .partition import partition_elements
 from .sharded import ShardedProblem, ShardedSolver
 
 __all__ = [
+    "NeighborExchange",
     "PartitionMaps",
+    "build_neighbor_exchange",
     "build_partition_maps",
     "rcm_reorder_maps",
     "partition_elements",

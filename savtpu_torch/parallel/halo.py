@@ -1,6 +1,7 @@
 """Partition localization and halo (shared-node) index maps (NumPy copy
 of ``savtpu/parallel/halo.py``: ``PartitionMaps``,
-``build_partition_maps``, ``local_cells_of``, ``rcm_reorder_maps``).
+``build_partition_maps``, ``local_cells_of``, ``rcm_reorder_maps``,
+``NeighborExchange`` and ``build_neighbor_exchange``).
 
 - per-part element lists (ascending global order),
 - per-part node lists in *first-touch* order — this order defines the
@@ -106,6 +107,83 @@ def build_partition_maps(
         shared_nodes=shared_nodes,
         global_shared=global_shared,
         local_dirichlet=local_dirichlet,
+    )
+
+
+@dataclass
+class NeighborExchange:
+    """The neighbour-packed halo exchange's static plan (exchange_mode
+    'permute'): R rounds, in each of which every part sends its interface
+    DOFs to at most one partner and receives that partner's. Greedy edge
+    colouring of the part-adjacency graph gives the rounds (R <= max
+    degree + 1). pack/unpack indices address the part's padded local DOF
+    vector; padded buffer slots point at the dummy DOF and carry mask 0.
+    """
+
+    n_rounds: int
+    buf_len: int                 # 3 * max pairwise interface size
+    pack_idx: np.ndarray         # (P, R, B) local DOF to send (pad DL-1)
+    unpack_idx: np.ndarray       # (P, R, B) local DOF to add into
+    mask: np.ndarray             # (P, R, B) 1 on real slots
+    src_of: np.ndarray           # (P, R) partner part id, -1 if idle
+    pairs: list                  # per round: [(src, dst), ...]
+
+
+def build_neighbor_exchange(maps: PartitionMaps, DL: int) -> NeighborExchange:
+    """Pairwise interfaces and their greedy edge colouring.
+
+    For parts p < q the interface is local_nodes[p] & local_nodes[q],
+    ordered by global node id so both sides pack and unpack alike. Summing
+    every partner's contribution reproduces the psum exchange: a node
+    owned by k parts rides k-1 edges at each owner, so every owner
+    accumulates all k contributions (in round order, which may differ
+    from part to part)."""
+    P = maps.n_parts
+    node_sets = [set(ln.tolist()) for ln in maps.local_nodes]
+    edges = []  # (p, q, sorted interface nodes)
+    for p in range(P):
+        for q in range(p + 1, P):
+            inter = node_sets[p] & node_sets[q]
+            if inter:
+                edges.append((p, q, np.array(sorted(inter), dtype=np.int64)))
+
+    # greedy edge colouring: the smallest colour free at both endpoints
+    used = [set() for _ in range(P)]
+    colors = []
+    for p, q, _ in edges:
+        c = 0
+        while c in used[p] or c in used[q]:
+            c += 1
+        used[p].add(c)
+        used[q].add(c)
+        colors.append(c)
+    R = max(colors, default=-1) + 1
+    B = max((3 * len(e[2]) for e in edges), default=1)
+
+    pack_idx = np.full((P, max(R, 1), B), DL - 1, dtype=np.int32)
+    unpack_idx = np.full((P, max(R, 1), B), DL - 1, dtype=np.int32)
+    mask = np.zeros((P, max(R, 1), B), dtype=np.float64)
+    src_of = np.full((P, max(R, 1)), -1, dtype=np.int32)
+    pairs: list = [[] for _ in range(max(R, 1))]
+
+    for (p, q, inter), c in zip(edges, colors):
+        for a, b in ((p, q), (q, p)):
+            loc = maps.local_index_of(a, inter)
+            dofs = (3 * loc[:, None] + np.arange(3)).reshape(-1)
+            pack_idx[a, c, : len(dofs)] = dofs
+            unpack_idx[a, c, : len(dofs)] = dofs
+            mask[a, c, : len(dofs)] = 1.0
+            src_of[a, c] = b
+            pairs[c].append((a, b))
+
+    return NeighborExchange(
+        n_rounds=max(R, 1),
+        buf_len=B,
+        pack_idx=pack_idx,
+        unpack_idx=unpack_idx,
+        mask=mask,
+        src_of=src_of,
+        pairs=[tuple(sorted(pr)) for pr in pairs],
     )
 
 

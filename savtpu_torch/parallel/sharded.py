@@ -9,23 +9,29 @@ have a single owner and never move.
 
 Ported here: the ``dense``, ``banded`` and ``pallas`` internal-force
 modes (``auto`` picks dense up to DL = 1536 local DOFs, banded beyond),
-the matrix-free ``nh`` (Neo-Hookean, recomputed every step: the
+``ell`` (node-block ELLPACK: a gather and 3x3 multiply-reduce, no
+scatter) and ``ebe`` (element by element: each element's K_e d_e, folded
+per DOF through the incident lists in a fixed order, no atomics), the
+matrix-free ``nh`` (Neo-Hookean, recomputed every step: the
 gather-free stencil on a structured box partition, elsewhere the
 windowed layout or the incident-list gather) and ``stencil`` (linear
-elastic, gather-free on a box partition) modes, the psum and ``grid``
-(box partitions: face-plane sums) exchanges; the box partitions include
+elastic, gather-free on a box partition) modes, the psum, ``grid``
+(box partitions: face-plane sums) and ``permute`` (neighbour-packed:
+rounds of point-to-point interface buffers, the JAX package's
+``ppermute`` emulated over the part axis) exchanges; the box partitions include
 the periodic tube, whose cells carry their own geometry, whose full-ring
 parts wrap a corner column and whose part ring adds a seam pair to the
 grid exchange; the plain and compensated (double-word) steppers with
-prediction overwrite and in-loop ``save_every`` recording, and the
+prediction overwrite (or its blend toward the computed dynamics, the
+resync block's release) and in-loop ``save_every`` recording, and the
 comm-free online block, which in banded compensated mode runs as one
 hand-written kernel (``ops/online_banded.py``). The generic time loop is
 one step function (``ShardedProblem._step``) run two ways: on a CUDA
 device from captured CUDA graphs of up to ``GRAPH_STEPS`` steps each,
 replayed with no host work inside (the counterpart of the JAX package's
 jitted ``lax.scan``), and on the CPU as an eager Python loop. The JAX
-package's ``shard_map`` device meshes, the ell/ebe modes and the permute
-exchange wait for later slices (ROADMAP A12a, A13). Its face-plane
+package's ``shard_map`` device meshes wait for a later slice (ROADMAP
+A13). Its face-plane
 access to shared DOFs in stencil mode (which keeps scatters out of an
 XLA scan on the TPU) is not carried over: every mode here touches shared
 DOFs through the same gather and scatter, which give the same values.
@@ -55,6 +61,7 @@ import torch
 
 from ..mesh.generator import _CORNERS, _HEX_TO_TETS
 from ..ops import banded_scan, dense_step, kernels
+from ..ops.assembly import incident_lists
 from ..ops.dense_step import batched_fint_matvec
 from ..ops.forces import (
     displacement_gradient,
@@ -64,17 +71,19 @@ from ..ops.forces import (
 )
 from ..ops.material import NeoHookean, linear_ramp
 from ..ops.online_banded import band_matvec, online_chunk
+from ..utils import resolve_device
 from . import stencil
-from .halo import PartitionMaps, local_cells_of, rcm_reorder_maps
+from .halo import (
+    PartitionMaps,
+    build_neighbor_exchange,
+    local_cells_of,
+    rcm_reorder_maps,
+)
 
-# the JAX package's internal-force modes, and those ported here
+# the JAX package's internal-force modes and halo exchanges, all ported
 FINT_MODES = frozenset(
     {"auto", "dense", "banded", "ell", "ebe", "pallas", "nh", "stencil"})
-PORTED_FINT_MODES = frozenset(
-    {"auto", "dense", "banded", "pallas", "nh", "stencil"})
-# the JAX package's halo exchanges, and those ported here
 EXCHANGE_MODES = frozenset({"psum", "permute", "grid"})
-PORTED_EXCHANGE_MODES = frozenset({"psum", "grid"})
 
 # run_streamed's chunk plan (the JAX package's): at most this many steps,
 # or this many bytes of recorded trajectory, per chunk
@@ -126,6 +135,64 @@ def _build_banded(npn, DLp, edofs, Ke, chunk_quantum=256):
     return Kd, Kl, nc, Bk
 
 
+def _build_ell(npn, L_max, edofs, Ke):
+    """Node-block ELLPACK from per-part element stiffness: for each local
+    node row a fixed-width list of (column node, 3x3 block), duplicate
+    element contributions summed on the host (lexsort + reduceat), so the
+    step's product is a gather and a multiply-reduce only. Padded column
+    slots point at node L_max (an appended zero row). Host float64."""
+    per_part = []
+    C_max = 1
+    for p in range(npn):
+        nodes = edofs[p][:, ::3] // 3               # (E, nb) local node ids
+        E, nb = nodes.shape
+        blocks = (
+            Ke[p]
+            .reshape(E, nb, 3, nb, 3)
+            .transpose(0, 1, 3, 2, 4)
+            .reshape(-1, 3, 3)
+        )
+        rows = np.repeat(nodes, nb, axis=1).reshape(-1)
+        cols = np.tile(nodes, (1, nb)).reshape(-1)
+        keep = rows < L_max                          # drop padded elements
+        rows, cols, blocks = rows[keep], cols[keep], blocks[keep]
+        key = rows.astype(np.int64) * (L_max + 1) + cols
+        order = np.argsort(key, kind="stable")
+        key, blocks = key[order], blocks[order]
+        ukey, start = np.unique(key, return_index=True)
+        summed = np.add.reduceat(blocks, start, axis=0)
+        urow = (ukey // (L_max + 1)).astype(np.int64)
+        ucol = (ukey % (L_max + 1)).astype(np.int64)
+        counts = np.bincount(urow, minlength=L_max)
+        C_max = max(C_max, int(counts.max(initial=1)))
+        per_part.append((urow, ucol, summed, counts))
+
+    ell_blocks = np.zeros((npn, L_max, C_max, 3, 3), dtype=np.float64)
+    ell_cols = np.full((npn, L_max, C_max), L_max, dtype=np.int32)
+    for p, (urow, ucol, summed, counts) in enumerate(per_part):
+        offs = np.zeros(L_max + 1, dtype=np.int64)
+        offs[1:] = np.cumsum(counts)
+        slot = np.arange(len(urow)) - offs[urow]
+        ell_blocks[p, urow, slot] = summed
+        ell_cols[p, urow, slot] = ucol
+    return ell_blocks, ell_cols
+
+
+def _check_unpack_distinct(unpack, mask):
+    """The permute exchange adds each round's buffer with one gather and
+    one scatter, which is exact (and the same bits at every run, with no
+    atomics) only if a part's real unpack slots in a round are distinct;
+    its padded slots all point at the dummy DOF and add 0."""
+    P, R, _ = unpack.shape
+    for p in range(P):
+        for r in range(R):
+            real = unpack[p, r][mask[p, r] > 0]
+            if len(np.unique(real)) != len(real):
+                raise ValueError(
+                    f"neighbour exchange: part {p} round {r} unpacks into "
+                    "a DOF twice")
+
+
 def _stencil_index(device):
     """Device constants of the box stencil: the (6, 4) corner of each
     tet type's nodes (``_HEX_TO_TETS``); for each of the 8 cell corners
@@ -137,34 +204,6 @@ def _stencil_index(device):
         fold[c, : len(k)] = k
     return (torch.as_tensor(_HEX_TO_TETS, dtype=torch.int64).to(device),
             torch.as_tensor(fold).to(device))
-
-
-def _incident_lists(edofs, DL):
-    """(P, DL, C_max) flat element-slot positions (element * 12 + slot)
-    writing into each local DOF, padded with the sentinel E_max * 12
-    (which reads an appended zero): the gather-only assembly of the
-    incident-list Neo-Hookean path (the JAX package's ``nh_gather``)."""
-    npn, E_max, nb3 = edofs.shape
-    sent = E_max * nb3
-    C_max = 1
-    per_part_pos = []
-    for p in range(npn):
-        flat_dof = edofs[p].reshape(-1)
-        real = flat_dof < DL - 1
-        pos = np.flatnonzero(real)
-        dofs = flat_dof[real]
-        order = np.argsort(dofs, kind="stable")
-        dofs, pos = dofs[order], pos[order]
-        counts = np.bincount(dofs, minlength=DL)
-        C_max = max(C_max, int(counts.max(initial=1)))
-        per_part_pos.append((dofs, pos, counts))
-    idx = np.full((npn, DL, C_max), sent, dtype=np.int64)
-    for p, (dofs, pos, counts) in enumerate(per_part_pos):
-        offs = np.zeros(DL + 1, dtype=np.int64)
-        offs[1:] = np.cumsum(counts)
-        slot = np.arange(len(dofs)) - offs[dofs]
-        idx[p, dofs, slot] = pos
-    return idx
 
 
 def _element_geometry(ec, n_elems):
@@ -244,7 +283,7 @@ def _window_edofs(w0, rel, real, DL):
     """(P, NC * Ec, 12) local DOFs of the windowed layout's element slots
     in chunk order (w0 + relative index), padded chunk slots -> DL - 1:
     the ``edofs`` of the incident-list force, whose fold over these slots
-    (``_incident_lists``) is then a fixed-order sum in chunk order."""
+    (``incident_lists``) is then a fixed-order sum in chunk order."""
     nodes = w0[:, :, None, None] + rel                   # (P, NC, Ec, 4)
     wed = (3 * nodes[..., None] + np.arange(3)).reshape(
         nodes.shape[0], -1, 3 * nodes.shape[-1])
@@ -338,12 +377,13 @@ class ShardedProblem:
     # its incident-list layout (a partition that is not a box; in the
     # windowed layout the element slots come in chunk order):
     edofs: Optional[torch.Tensor] = None      # (P, E_max, 12) local DOFs
-                                              # (pad -> DL-1)
+                                              # (pad -> DL-1; also ebe's)
     nh_G: Optional[torch.Tensor] = None       # (P, E_max, 4, 3) physical
                                               # gradients (pad -> 0)
     nh_detJw: Optional[torch.Tensor] = None   # (P, E_max) detJ * sum(w)
     nh_gather: Optional[torch.Tensor] = None  # (P, DL, C_max) incident
-                                              # slots (_incident_lists)
+                                              # slots (incident_lists;
+                                              # also ebe's)
     # the windowed layout (nh_gather 'auto'/'window', _build_nh_window):
     # RCM-ordered local nodes, elements in chunks of Ec by least node,
     # each chunk reading a W-node window. Its forces run through the
@@ -373,6 +413,19 @@ class ShardedProblem:
     grid_inv: Optional[torch.Tensor] = None   # (P,) box-lex slot of part
     grid_wrap: bool = False                   # y part axis is a periodic
                                               # ring (tube): one seam pair
+    # node-block ELLPACK (fint_mode 'ell', _build_ell)
+    ell_blocks: Optional[torch.Tensor] = None  # (P, L_max, C_max, 3, 3)
+    ell_cols: Optional[torch.Tensor] = None    # (P, L_max, C_max) node col
+                                               # (pad -> L_max, a zero row)
+    # element by element (fint_mode 'ebe'): element stiffness on edofs,
+    # folded through nh_gather's incident lists
+    Ke: Optional[torch.Tensor] = None          # (P, E_max, 12, 12)
+    # the neighbour-packed exchange (exchange_mode 'permute',
+    # halo.build_neighbor_exchange)
+    nx_pack: Optional[torch.Tensor] = None     # (P, R, B) send DOF ids
+    nx_unpack: Optional[torch.Tensor] = None   # (P, R, B) add-into DOF ids
+    nx_mask: Optional[torch.Tensor] = None     # (P, R, B) 1 on real slots
+    nx_src: Optional[torch.Tensor] = None      # (P, R) partner id, -1 idle
     # the stepper's cached graph chunks (_StepChunk), by flags and shapes
     _graphs: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
@@ -410,7 +463,7 @@ class ShardedProblem:
         nh_stencil: str = "auto",
         nh_gather: str = "auto",
         shared_order=None,
-        device="cpu",
+        device=None,
     ) -> "ShardedProblem":
         """``material``: a ``NeoHookean`` switches the stepper to per-step
         matrix-free nonlinear forces (fint_mode becomes 'nh').
@@ -423,7 +476,11 @@ class ShardedProblem:
         ``shared_order``: optional per-part arrays of global node ids —
         a permutation of each part's shared-node set — fixing the shared
         CHANNEL order of sld/sgi/smask, so stage reruns stay compatible
-        with traces and models already on disk."""
+        with traces and models already on disk.
+
+        ``device``: where the tensors go, CUDA unless the caller asks for
+        another (``utils.resolve_device``: raises without CUDA)."""
+        dev = resolve_device(device)
         if isinstance(material, NeoHookean):
             fint_mode = "nh"
         if fint_mode == "nh" and not isinstance(material, NeoHookean):
@@ -435,20 +492,10 @@ class ShardedProblem:
                 f"unknown fint_mode {fint_mode!r}; expected one of "
                 f"{sorted(FINT_MODES)}"
             )
-        if fint_mode not in PORTED_FINT_MODES:
-            raise NotImplementedError(
-                f"fint_mode {fint_mode!r} is not ported yet; use one of "
-                f"{sorted(PORTED_FINT_MODES)}"
-            )
         if exchange_mode not in EXCHANGE_MODES:
             raise ValueError(
                 f"unknown exchange_mode {exchange_mode!r}; expected one of "
                 f"{sorted(EXCHANGE_MODES)}"
-            )
-        if exchange_mode not in PORTED_EXCHANGE_MODES:
-            raise NotImplementedError(
-                f"exchange_mode {exchange_mode!r} is not ported yet "
-                "(ROADMAP A12a); use 'psum' or 'grid'"
             )
         if nh_gather not in ("auto", "window", "incident"):
             raise ValueError(
@@ -456,7 +503,8 @@ class ShardedProblem:
                 f"'window' or 'incident'"
             )
         if prob.deg != 1:
-            raise NotImplementedError("the dynamic path is P1-only")
+            raise NotImplementedError(
+                "the dynamic path is P1-only (P2: ROADMAP A12c)")
         if fint_mode == "auto":
             # dense for small local blocks, block-tridiagonal beyond
             DL_est = 3 * maps.max_local_nodes + 1
@@ -574,7 +622,6 @@ class ShardedProblem:
             sgi[p, : len(sdofs)] = gsdofs
             smask[p, : len(sdofs)] = 1.0
 
-        dev = torch.device(device)
         as_t = lambda a: torch.as_tensor(a, dtype=dtype).to(dev)  # noqa: E731
         as_i = lambda a: torch.as_tensor(a, dtype=torch.int64).to(dev)  # noqa: E731
         denseK = band_Kd = band_Kl = None
@@ -603,13 +650,19 @@ class ShardedProblem:
             if nh_box is None:
                 extra.update(edofs=as_i(edofs), nh_G=as_t(Gs),
                              nh_detJw=as_t(dJw),
-                             nh_gather=as_i(_incident_lists(edofs, DL)))
+                             nh_gather=as_i(incident_lists(edofs, DL)))
         elif fint_mode == "stencil":
             extra.update(stn_lmd=float(prob.material.lmd),
                          stn_mu=float(prob.material.mu))
         elif fint_mode == "banded":
             Kd, Kl, _, _ = _build_banded(npn, 3 * L_max, edofs, Ke)
             band_Kd, band_Kl = as_t(Kd), as_t(Kl)
+        elif fint_mode == "ell":
+            blocks, cols = _build_ell(npn, L_max, edofs, Ke)
+            extra.update(ell_blocks=as_t(blocks), ell_cols=as_i(cols))
+        elif fint_mode == "ebe":
+            extra.update(Ke=as_t(Ke), edofs=as_i(edofs),
+                         nh_gather=as_i(incident_lists(edofs, DL)))
         else:
             dk = np.zeros((npn, DL, DL), dtype=np.float64)
             for p in range(npn):
@@ -621,6 +674,12 @@ class ShardedProblem:
             dk[:, DL - 1, :] = 0.0
             dk[:, :, DL - 1] = 0.0
             denseK = as_t(dk)
+        if exchange_mode == "permute":
+            nx = build_neighbor_exchange(maps, DL)
+            _check_unpack_distinct(nx.unpack_idx, nx.mask)
+            extra.update(nx_pack=as_i(nx.pack_idx),
+                         nx_unpack=as_i(nx.unpack_idx),
+                         nx_mask=as_t(nx.mask), nx_src=as_i(nx.src_of))
         if grid_box is not None:
             pdims, perm, inv, wrap = _grid_layout(grid_box, npn)
             extra.update(grid_pdims=pdims,
@@ -673,6 +732,10 @@ class ShardedProblem:
         in the linear modes, the matrix-free forces in 'nh' and
         'stencil'."""
         mode = self.fint_mode
+        if mode == "ell":
+            return self._ell_fint(d)
+        if mode == "ebe":
+            return self._ebe_fint(d)
         if mode == "dense":
             return torch.bmm(self.denseK, d[:, :, None])[:, :, 0]
         if mode == "pallas":
@@ -699,6 +762,35 @@ class ShardedProblem:
             return self._stencil_fint(d, linear_stress, self.stn_mu,
                                       self.stn_lmd)
         raise ValueError(f"unknown fint_mode {mode!r}")
+
+    def _ell_fint(self, d: torch.Tensor) -> torch.Tensor:
+        """Node-block ELLPACK product: each node row gathers its column
+        nodes' displacements (padded columns read an appended zero node)
+        and multiply-reduces them with its 3x3 blocks."""
+        P = d.shape[0]
+        L = (self.DL - 1) // 3
+        dn = torch.cat([d[:, : 3 * L].reshape(P, L, 3),
+                        d.new_zeros((P, 1, 3))], dim=1)
+        C = self.ell_cols.shape[2]
+        dg = torch.gather(dn, 1, self.ell_cols.reshape(P, -1, 1).expand(
+            -1, -1, 3)).reshape(P, L, C, 1, 3)
+        fi = (self.ell_blocks * dg).sum(dim=(2, 4))      # (P, L, 3)
+        return torch.cat([fi.reshape(P, 3 * L), d.new_zeros((P, 1))], dim=1)
+
+    def _ebe_fint(self, d: torch.Tensor) -> torch.Tensor:
+        """Element by element: each element's K_e d_e (multiply and reduce
+        over the 12 columns), then every DOF's incident element rows summed
+        by a fixed-width gather (``nh_gather``) in element order. The JAX
+        package adds them with a segment sum; here no scatter-add runs, so
+        the card gives the same bits at every run and in a replayed
+        graph."""
+        P, E, nb3 = self.edofs.shape
+        de = torch.gather(d, 1, self.edofs.reshape(P, -1)).reshape(
+            P, E, 1, nb3)
+        fe = (self.Ke * de).sum(-1).reshape(P, -1)
+        flat = torch.cat([fe, fe.new_zeros((P, 1))], dim=1)
+        return torch.gather(flat, 1, self.nh_gather.reshape(P, -1)).reshape(
+            P, self.DL, -1).sum(-1)
 
     def _nh_fint(self, d: torch.Tensor) -> torch.Tensor:
         """Neo-Hookean forces on any partition: each element's nodal
@@ -821,10 +913,37 @@ class ShardedProblem:
         flat = v.reshape(P, 3 * L)[self.grid_inv]
         return torch.cat([flat, F_int[:, 3 * L :]], dim=1)
 
+    def _emulated_permute(self, buf: torch.Tensor, r: int) -> torch.Tensor:
+        """The JAX package's single-device stand-in for ``ppermute`` on
+        the part axis: part p receives round r's buffer from its partner,
+        or zeros when idle."""
+        src = self.nx_src[:, r]
+        got = buf.index_select(0, src.clamp(min=0))
+        return torch.where((src >= 0)[:, None], got, torch.zeros_like(got))
+
+    def _exchange_permute(self, F_int: torch.Tensor) -> torch.Tensor:
+        """Neighbour-packed halo exchange: R rounds, each packing every
+        part's interface DOFs with its round's partner, permuting the
+        buffers and adding the received one in. A shared DOF thus sums its
+        owners' contributions in round order, as the JAX package's permute
+        does (not in the psum's owner order). A part's real unpack slots in
+        a round are distinct (checked at build), so the add is a gather
+        and a scatter: no atomics."""
+        out = F_int
+        for r in range(self.nx_pack.shape[1]):
+            m = self.nx_mask[:, r]
+            buf = torch.gather(F_int, 1, self.nx_pack[:, r]) * m
+            ui = self.nx_unpack[:, r]
+            recv = self._emulated_permute(buf, r) * m
+            out = out.scatter(1, ui, torch.gather(out, 1, ui) + recv)
+        return out
+
     def _sync(self, F_int: torch.Tensor) -> torch.Tensor:
         """The exchanged step's halo exchange, by ``exchange_mode``."""
         if self.exchange_mode == "grid":
             return self._exchange_grid(F_int)
+        if self.exchange_mode == "permute":
+            return self._exchange_permute(F_int)
         return self._exchange(F_int)
 
     def _translation_mean(self, d: torch.Tensor) -> torch.Tensor:
@@ -873,13 +992,15 @@ class ShardedProblem:
         return out
 
     # ------------------------------------------------------------------
-    def _online_ok(self, sync, preds, record, save_every, num_steps) -> bool:
+    def _online_ok(self, sync, preds, record, save_every, num_steps,
+                   blend=None) -> bool:
         """Gate for the online kernel (ops/online_banded.py): the
         production comm-free block — banded, compensated state, per-step
-        prediction overwrite, full recording."""
+        prediction overwrite (no blend), full recording."""
         return (
             not sync
             and preds is not None
+            and blend is None
             and record == "all"
             and self.compensated
             and self.fint_mode == "banded"
@@ -966,6 +1087,7 @@ class ShardedProblem:
         *,
         sync: bool,
         preds=None,              # (P, num_steps, 3*S_max) if not sync
+        blend=None,              # (num_steps,) overwrite->dynamics weight
         record: str = "all",     # "all" | "traj" | "shared" | "none"
         save_every: int = 1,
     ):
@@ -977,6 +1099,12 @@ class ShardedProblem:
         0, shape (P, num_steps // save_every, DL); the shared-DOF trace is
         recorded at every step, shape (P, num_steps, 3*S_max).
 
+        ``blend`` (with ``preds``): per-step weights w that move the shared
+        DOFs from the prediction (w = 0, the overwrite) to the computed
+        dynamics (w = 1): the resync block's release, which the stage-4
+        loop ramps by a smoothstep. They ride as a device tensor that each
+        step reads by its index, so a captured graph replays them.
+
         On a CUDA device the step loop replays from CUDA graphs
         (:meth:`_stacked_run_chunked`); on the CPU it is the eager loop
         (:meth:`_stacked_run_eager`). Both run the same step, so they give
@@ -987,15 +1115,20 @@ class ShardedProblem:
                 f"save_every ({save_every})"
             )
         t0 = torch.as_tensor(t0, dtype=d0.dtype).to(d0.device)
+        if blend is not None:
+            if preds is None:
+                raise ValueError("blend needs preds")
+            blend = torch.as_tensor(blend, dtype=d0.dtype).to(d0.device)
 
-        if self._online_ok(sync, preds, record, save_every, num_steps):
+        if self._online_ok(sync, preds, record, save_every, num_steps,
+                           blend):
             return self._online_run(d0, dn, t0, num_steps, preds,
                                     save_every)
         run = (self._stacked_run_chunked
                if d0.device.type == "cuda" and num_steps > 0
                else self._stacked_run_eager)
         return run(d0, dn, t0, num_steps, sync=sync, preds=preds,
-                   record=record, save_every=save_every)
+                   blend=blend, record=record, save_every=save_every)
 
     # The step of the generic loop. Its state is (d, d_prev, t) for the
     # plain stepper and (d_hi, d_lo, v, i) for the compensated one; each
@@ -1023,7 +1156,10 @@ class ShardedProblem:
         one = torch.ones((), dtype=dtype, device=dev)
         return c1, c2, dtc, one
 
-    def _step(self, state, pred_row, sync, consts, t0):
+    def _step(self, state, pred_row, sync, consts, t0, w=None):
+        """One step; ``pred_row`` overwrites the shared DOFs, or with a
+        blend weight ``w`` (a 0-d tensor) is blended toward the computed
+        dynamics: w * dynamics + (1 - w) * prediction."""
         F_of = self._fint_stacked
         if not self.compensated:
             d0c, dnc, tn = state
@@ -1032,6 +1168,9 @@ class ShardedProblem:
                 F_int = self._sync(F_int)
             d1 = self._update(d0c, dnc, tn, F_int)
             if pred_row is not None:
+                if w is not None:
+                    cur = torch.gather(d1, 1, self.sld)
+                    pred_row = w * cur + (1.0 - w) * pred_row
                 d1 = self._scatter_pred(d1, pred_row)
             return (d1, d0c, tn + self.dt), d1
         # Compensated (double-word) integration. The update is recast in
@@ -1059,6 +1198,9 @@ class ShardedProblem:
             # form the increment at a shared slot is pred - current
             cur = (torch.gather(d_hi, 1, self.sld)
                    + torch.gather(d_lo, 1, self.sld))
+            if w is not None:
+                dyn = cur + torch.gather(delta, 1, self.sld)
+                pred_row = w * dyn + (1.0 - w) * pred_row
             tgt = (pred_row - cur) * self.smask
             delta = delta.scatter(1, self.sld, tgt)
             delta[:, self.DL - 1] = 0.0
@@ -1079,7 +1221,7 @@ class ShardedProblem:
         return (d1, d1 - v, t0 + consts[2] * i)
 
     def _steps(self, state, num_steps, preds, sync, consts, t0, *,
-               want_traj, want_shared, save_every):
+               want_traj, want_shared, save_every, blend=None):
         """``num_steps`` steps from ``state``; returns the new state, the
         trajectory rows (every save_every-th step) and the shared rows
         (every step), stacked, or None where not wanted."""
@@ -1087,7 +1229,7 @@ class ShardedProblem:
         for k in range(num_steps):
             state, rec = self._step(
                 state, None if preds is None else preds[:, k, :], sync,
-                consts, t0)
+                consts, t0, None if blend is None else blend[k])
             if want_traj and k % save_every == 0:
                 traj.append(rec)
             if want_shared:
@@ -1097,21 +1239,24 @@ class ShardedProblem:
                 torch.stack(shared, dim=1) if want_shared else None)
 
     def _stacked_run_eager(self, d0, dn, t0, num_steps, *, sync, preds,
-                           record, save_every):
+                           record, save_every, blend=None):
         """The step loop as eager tensor ops: the CPU path, and on the card
         the reference the graph path is held against."""
         consts = self._step_constants(d0.dtype, d0.device)
         state, traj, shared = self._steps(
             self._init_state(d0, dn, t0), num_steps, preds, sync, consts,
             t0, want_traj=record in ("all", "traj"),
-            want_shared=record in ("all", "shared"), save_every=save_every)
+            want_shared=record in ("all", "shared"), save_every=save_every,
+            blend=blend)
         return (traj, shared), self._carry(state, t0, consts)
 
     def _stacked_run_chunked(self, d0, dn, t0, num_steps, *, sync, preds,
-                             record, save_every, graph_steps=None):
+                             record, save_every, blend=None,
+                             graph_steps=None):
         """The step loop in chunks of G steps (:func:`graph_chunks`), each
         a :class:`_StepChunk` whose static buffers carry the state, t0 and
-        the chunk's predictions in and its recordings out. On a CUDA device
+        the chunk's predictions (and blend weights) in and its recordings
+        out. On a CUDA device
         every chunk is a captured CUDA graph, cached on the problem by the
         run's flags, its length and its shapes, and replayed; on the CPU
         (the tests) the chunk's body runs directly. If a capture fails the
@@ -1131,10 +1276,13 @@ class ShardedProblem:
         for n in [G] * n_full + ([rem] if rem else []):
             chunk = self._chunk(n, state, t0, sync=sync,
                                 has_preds=preds is not None,
+                                has_blend=blend is not None,
                                 want_traj=want_traj, want_shared=want_shared,
                                 save_every=save_every)
-            state = chunk.run(state, t0, None if preds is None
-                              else preds[:, done : done + n])
+            state = chunk.run(
+                state, t0, None if preds is None
+                else preds[:, done : done + n],
+                None if blend is None else blend[done : done + n])
             if want_traj:
                 traj[:, done // save_every : (done + n) // save_every] = (
                     chunk.traj)
@@ -1152,7 +1300,9 @@ class ShardedProblem:
                    self.lM, self.bc_mask, self.dof_mask, self.sld, self.sgi,
                    self.smask, self.owners, self.edofs, self.nh_G,
                    self.nh_detJw, self.nh_gather, self.nhs_G, self.nhs_dJw,
-                   self.nhs_Gc, self.nhs_dJwc, self.grid_perm, self.grid_inv)
+                   self.nhs_Gc, self.nhs_dJwc, self.grid_perm, self.grid_inv,
+                   self.ell_blocks, self.ell_cols, self.Ke, self.nx_pack,
+                   self.nx_unpack, self.nx_mask, self.nx_src)
         key = (n, tuple(sorted(flags.items())), self.compensated,
                self.fint_mode, self.exchange_mode, self.nh_material,
                self.stn_lmd, self.stn_mu, self.nhs_wrap, self.grid_wrap,
@@ -1175,8 +1325,8 @@ COUNTED_KERNELS = (batched_fint_matvec,)
 class _StepChunk:
     """``n`` steps of ``ShardedProblem._step`` on static buffers: the state
     and t0 in (copied back in place at the chunk's end, so the next run
-    continues from it), the chunk's prediction rows in, its trajectory
-    rows and shared rows out.
+    continues from it), the chunk's prediction rows and blend weights in,
+    its trajectory rows and shared rows out.
 
     On a CUDA device the body is captured once into a CUDA graph and
     every :meth:`run` replays it; the kernel wrappers' counts (which the
@@ -1187,8 +1337,8 @@ class _StepChunk:
     sets up what the step's kernels need first (cuBLAS for the dense and
     banded products), and launches no counted kernel."""
 
-    def __init__(self, sp, n, state, t0, *, sync, has_preds, want_traj,
-                 want_shared, save_every):
+    def __init__(self, sp, n, state, t0, *, sync, has_preds, has_blend,
+                 want_traj, want_shared, save_every):
         # a weak reference: the problem caches its chunks, and a cycle
         # would leave a dead problem's graphs to the cyclic collector,
         # which may run (and destroy a graph) during another capture
@@ -1201,6 +1351,8 @@ class _StepChunk:
         P, S3 = self.state[0].shape[0], sp.sld.shape[1]
         self.preds = (torch.zeros((P, n, S3), dtype=dtype, device=dev)
                       if has_preds else None)
+        self.blend = (torch.zeros((n,), dtype=dtype, device=dev)
+                      if has_blend else None)
         self.consts = sp._step_constants(dtype, dev)
         self.traj = self.shared = None
         self.graph, self.captured = None, {}
@@ -1215,7 +1367,7 @@ class _StepChunk:
         state, self.traj, self.shared = self.sp._steps(
             self.state, self.n, self.preds, self.sync, self.consts, self.t0,
             want_traj=self.want_traj, want_shared=self.want_shared,
-            save_every=self.save_every)
+            save_every=self.save_every, blend=self.blend)
         # back into the static state, last entry first: the plain state's
         # new d_prev is the old d, which for n = 1 is the static d itself
         for dst, src in reversed(list(zip(self.state, state))):
@@ -1232,7 +1384,8 @@ class _StepChunk:
             with torch.cuda.stream(stream):
                 sp._step(self.state, None if self.preds is None
                          else self.preds[:, 0, :], self.sync, self.consts,
-                         self.t0)
+                         self.t0, None if self.blend is None
+                         else self.blend[0])
         before = {fn: fn.launches for fn in COUNTED_KERNELS}
         self.graph = torch.cuda.CUDAGraph()
         # no collection during the capture: destroying any CUDA graph then
@@ -1249,17 +1402,19 @@ class _StepChunk:
             self.captured[fn] = fn.launches - before[fn]
             fn.launches = before[fn]
 
-    def run(self, state, t0, preds):
+    def run(self, state, t0, preds, blend=None):
         """Run the chunk from ``state`` (and t0, and the chunk's rows of
-        ``preds``). Returns the new state: the static buffers, which the
-        next run of this chunk overwrites; ``traj`` and ``shared`` hold
-        the recordings until then."""
+        ``preds`` and ``blend``). Returns the new state: the static
+        buffers, which the next run of this chunk overwrites; ``traj`` and
+        ``shared`` hold the recordings until then."""
         for dst, src in zip(self.state, state):
             if src is not dst:
                 dst.copy_(src)
         self.t0.copy_(t0)
         if self.preds is not None:
             self.preds.copy_(preds)
+        if self.blend is not None:
+            self.blend.copy_(blend)
         if self.graph is None:
             self._body()
             return self.state
@@ -1289,10 +1444,12 @@ class ShardedSolver:
     def __init__(self, sp: ShardedProblem):
         self.sp = sp
 
-    def _pallas_scan_ok(self, sync, record, save_every) -> bool:
+    def _pallas_scan_ok(self, sync, record, save_every, blend=None) -> bool:
         """Gate of K2 (ops/dense_step.scan_comm_free), the JAX package's
         conditions: comm-free, pallas, uncompensated, at most shared-row
-        recording, save_every 1. Its VMEM budget is not carried over; the
+        recording, save_every 1; and no blend, which K2 does not apply
+        (the JAX package's K2 gate never sees one: its pipeline blends
+        only exchanged runs). Its VMEM budget is not carried over; the
         size rule here is the kernel's own: one part's state (six (DL,)
         vectors and the slot map) must fit in a block's shared memory,
         which every launch shape of ``dense_step.scan_plan`` needs. K
@@ -1302,6 +1459,7 @@ class ShardedSolver:
         sp = self.sp
         return (
             not sync
+            and blend is None
             and sp.fint_mode == "pallas"
             and not sp.compensated
             and record in ("none", "shared")
@@ -1309,30 +1467,31 @@ class ShardedSolver:
             and dense_step.scan_fits(sp.DL, sp.dtype)
         )
 
-    def _banded_scan_ok(self, sync, record, preds) -> bool:
+    def _banded_scan_ok(self, sync, record, preds, blend=None) -> bool:
         """Gate of K4 (ops/banded_scan.scan_comm_free_banded), the JAX
         package's conditions: comm-free, banded, uncompensated, no
-        recording, no predictions. Size rule: one part's state (six
+        recording, no predictions, no blend. Size rule: one part's state (six
         (nc*Bk,) vectors) must fit in a block's shared memory; the band
         streams from global memory."""
         sp = self.sp
-        if (sync or preds is not None or sp.fint_mode != "banded"
-                or sp.compensated or record != "none"):
+        if (sync or preds is not None or blend is not None
+                or sp.fint_mode != "banded" or sp.compensated
+                or record != "none"):
             return False
         _, nc, Bk, _ = sp.band_Kd.shape
         return banded_scan.scan_fits(nc, Bk, sp.dtype)
 
     def run(self, d0, dn, t0, num_steps, *, sync=True, preds=None,
-            record="all", save_every=1):
+            blend=None, record="all", save_every=1):
         sp = self.sp
-        if self._banded_scan_ok(sync, record, preds):
+        if self._banded_scan_ok(sync, record, preds, blend):
             d0f, dnf, tf = banded_scan.scan_comm_free_banded(
                 sp.band_Kd, sp.band_Kl, d0, dn, t0, sp.F_pre, sp.lM,
                 sp.bc_mask, num_steps=num_steps, dt=sp.dt, alpha=sp.alpha,
                 ramped=sp.ramped,
             )
             return (None, None), (d0f, dnf, tf)
-        if self._pallas_scan_ok(sync, record, save_every):
+        if self._pallas_scan_ok(sync, record, save_every, blend):
             d0f, dnf, tf, shared = dense_step.scan_comm_free(
                 sp.denseK, d0, dn, t0, sp.F_pre, sp.lM, sp.bc_mask, sp.sld,
                 sp.smask, None if preds is None else preds.to(d0.dtype),
@@ -1341,8 +1500,8 @@ class ShardedSolver:
             )
             return (None, shared), (d0f, dnf, tf)
         return sp.stacked_run(
-            d0, dn, t0, num_steps, sync=sync, preds=preds, record=record,
-            save_every=save_every,
+            d0, dn, t0, num_steps, sync=sync, preds=preds, blend=blend,
+            record=record, save_every=save_every,
         )
 
     def run_streamed(
@@ -1354,6 +1513,7 @@ class ShardedSolver:
         *,
         sync=True,
         preds=None,
+        blend=None,
         record="all",
         save_every=1,
         chunk_steps: Optional[int] = None,
@@ -1415,8 +1575,9 @@ class ShardedSolver:
             if probe and (n_dispatch < 2 or num_steps - done < chunk_steps):
                 n = probe
             pc = None if preds is None else preds[:, done : done + n]
+            bc = None if blend is None else blend[done : done + n]
             (traj_c, shared_c), carry = self.run(
-                *carry, n, sync=sync, preds=pc, record=record,
+                *carry, n, sync=sync, preds=pc, blend=bc, record=record,
                 save_every=save_every,
             )
             if traj_h is not None:

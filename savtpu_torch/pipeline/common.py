@@ -89,7 +89,8 @@ def build_context(cfg: Config, mesh=None, dtype=None,
     dtype = state_dtype(cfg, dtype)
     full_precision_products()
     if cfg.solver.deg != 1:
-        raise NotImplementedError("the dynamic pipeline is P1-only")
+        raise NotImplementedError(
+            "the dynamic pipeline is P1-only (P2: ROADMAP A12c)")
     tmarks = {}
     t0 = time.perf_counter()
 

@@ -1,10 +1,23 @@
 """Stage 1: the exchanged explicit solve that produces the training data
 (port of ``savtpu/pipeline/data_prepare.py``): partition labels, the
 steady solve written to VTK, and the full exchanged run saved as per-rank
-displacement histories."""
+displacement histories.
+
+    python -m savtpu_torch.pipeline.data_prepare [--config cfg.json]
+        [--steps N] [--parts P] [--ckpt-every N] [--[no-]resume]
+        [--device cpu]
+
+With ``solver.ckpt_every`` (``--ckpt-every``) the run persists its carry
+and recorded rows every that many steps under the store's
+``Checkpoints/stage1``; a killed run called again resumes there (unless
+``--no-resume``) and gives the same bits. The checkpoint is dropped once
+the artifacts are complete. Runs on CUDA unless ``--device`` says
+otherwise."""
 
 from __future__ import annotations
 
+import argparse
+import shutil
 import time
 
 import numpy as np
@@ -14,6 +27,7 @@ from ..io.artifacts import save_displacement
 from ..mesh import write_vtk
 from ..solvers.steady import steady_displacement
 from ..utils import stage_log, synchronize
+from ..utils.checkpoint import run_streamed_ckpt
 from .common import (
     StageContext,
     build_context,
@@ -23,12 +37,10 @@ from .common import (
 
 
 def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
-        device=None):
+        device=None, resume: bool = True):
     if ctx is None:
         ctx = build_context(cfg, device=device)
     prob, sp, solver, store = ctx.prob, ctx.sp, ctx.solver, ctx.store
-    if cfg.solver.ckpt_every:
-        raise NotImplementedError("mid-run checkpoints are not ported yet")
 
     save_partition_labels(ctx)
 
@@ -61,10 +73,18 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     t_start = time.perf_counter()
     # stage 1 never consumes the shared trace (stage 2 re-derives it from
     # the stored displacement), so only the trajectory is recorded
-    (traj, _), _ = solver.run_streamed(
-        d0, dn, 0.0, num_steps, sync=True, record="traj",
-        save_every=save_every,
-    )
+    ckpt_every = cfg.solver.ckpt_every
+    if ckpt_every:
+        (traj, _), _ = run_streamed_ckpt(
+            solver, d0, dn, 0.0, num_steps, sync=True, record="traj",
+            save_every=save_every, ckpt_dir=store.ckpt_dir("stage1"),
+            ckpt_every=ckpt_every, resume=resume, verbose=verbose,
+        )
+    else:
+        (traj, _), _ = solver.run_streamed(
+            d0, dn, 0.0, num_steps, sync=True, record="traj",
+            save_every=save_every,
+        )
     synchronize(ctx.device)
     elapsed = time.perf_counter() - t_start
     if verbose:
@@ -87,4 +107,36 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     )
     for r in range(sp.n_parts):
         save_displacement(store.dynamics_h5(r), rank_trajectory(ctx, traj, r))
+    if ckpt_every:
+        # the artifacts are complete: drop the mid-run checkpoint
+        del traj
+        shutil.rmtree(store.ckpt_dir("stage1"), ignore_errors=True)
     return ctx
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="savtpu_torch stage 1: data "
+                                             "prepare")
+    ap.add_argument("--config", type=str, default=None)
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--parts", type=int, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="checkpoint the carry + trajectory every N steps")
+    ap.add_argument("--resume", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="resume from an existing stage-1 checkpoint "
+                         "(--no-resume starts fresh)")
+    ap.add_argument("--device", type=str, default="cuda")
+    args = ap.parse_args(argv)
+    cfg = Config.from_json(args.config) if args.config else Config()
+    if args.steps:
+        cfg.solver.num_steps = args.steps
+    if args.parts:
+        cfg.partition.n_parts = args.parts
+    if args.ckpt_every is not None:
+        cfg.solver.ckpt_every = args.ckpt_every
+    run(cfg, device=args.device, resume=args.resume)
+
+
+if __name__ == "__main__":
+    main()

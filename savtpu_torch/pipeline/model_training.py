@@ -19,10 +19,18 @@ Every surrogate the JAX package trains:
 Each rank's model and a JSON sidecar with the architecture and the
 training scaling constants (which stage 4 recomputes and checks) go to
 ``{model_dir}/Rank-<r>/<tag>/``, beside the training curves.
+
+    python -m savtpu_torch.pipeline.model_training [--config cfg.json]
+        [--epochs N] [--device cpu]
+
+Runs on CUDA unless ``--device`` says otherwise. The JAX package's
+hyper-parameter grid (``--grid-*``, its ``run_grid``) is not ported
+(ROADMAP A12c).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from pathlib import Path
@@ -35,7 +43,7 @@ from ..io.artifacts import ArtifactStore, load_displacement, save_params
 from ..models.data import scale_to_zero_one, strided_windows, train_val_split
 from ..models.expfit import eval_expfit, fit_expfit
 from ..models.modal import modal_basis, to_modal
-from ..utils import stage_log
+from ..utils import resolve_device, stage_log
 
 
 def effective_filter(cfg: Config) -> int:
@@ -608,3 +616,20 @@ def _run_hybrid(cfg: Config, store: ArtifactStore, n_parts: int,
         )
         results[r] = (params_r, hist_r)
     return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="savtpu_torch stage 3: model "
+                                             "training")
+    ap.add_argument("--config", type=str, default=None)
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--device", type=str, default="cuda")
+    args = ap.parse_args(argv)
+    cfg = Config.from_json(args.config) if args.config else Config()
+    if args.epochs:
+        cfg.surrogate.num_epochs = args.epochs
+    run(cfg, device=resolve_device(args.device))
+
+
+if __name__ == "__main__":
+    main()

@@ -24,12 +24,29 @@ the online kernel, ops/online_banded.py). A ragged last block takes the
 first rows of a full block's prediction, with host float64 expfit rows.
 Models that do not stack (per-rank models of unpadded widths, or an
 unequal modal_dim) run the per-rank fallback loop: each rank's model
-predicts its own block from its own window, block by block. Not ported
-yet: resync blocks and stage-4 checkpoints.
+predicts its own block from its own window, block by block.
+
+On the stacked path the blocks run in groups (the JAX package's, sized by
+the bytes of their recorded trajectory), and with
+``surrogate.resync_blocks`` = k every k predicted blocks are followed by
+one exchanged block that blends the shared DOFs from the prediction to
+the computed dynamics along a smoothstep ramp (``stacked_run``'s
+``blend``) and re-anchors the history to real dynamics. With
+``solver.ckpt_every`` the carry, the history window, the resync counters
+and the recorded rows are checkpointed under the store's
+``Checkpoints/stage4`` after the warm-up and at group boundaries on the
+ckpt_every cadence; a killed run resumes there with the same bits, and a
+checkpoint of another run (its fingerprint: steps, stride, parts, layout,
+warm-up, block, surrogate arch and history dtype) is ignored. The
+checkpoint goes once the artifacts are written.
+
+    python -m savtpu_torch.pipeline.online_predictor [--config cfg.json]
+        [--steps N] [--ckpt-every N] [--[no-]resume] [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -52,6 +69,7 @@ from ..models.lstm import StackedSeq2Seq
 from ..models.modal import from_modal, to_modal
 from ..models.predictor import phase_interleaved_predict_stacked
 from ..utils import stage_log, synchronize
+from ..utils.checkpoint import TrajStore, restore_carry
 from .common import (
     StageContext,
     build_context,
@@ -300,13 +318,14 @@ def modal_reconstruct(coefs, modal, fmask):
 
 
 def _check_supported(cfg: Config) -> None:
-    sur = cfg.surrogate
+    """Refuse the stage-4 settings no run can honour: a negative resync
+    period or checkpoint cadence (0 turns either off)."""
     for name, val in (
-        ("surrogate.resync_blocks", sur.resync_blocks),
+        ("surrogate.resync_blocks", cfg.surrogate.resync_blocks),
         ("solver.ckpt_every", cfg.solver.ckpt_every),
     ):
-        if val:
-            raise NotImplementedError(f"{name} is not ported yet")
+        if int(val or 0) < 0:
+            raise ValueError(f"{name} must be >= 0, got {val}")
 
 
 class _ExpfitFeed:
@@ -396,7 +415,7 @@ def _stacked_ok(models, arch: str, modal_on: bool, S3: int) -> bool:
 
 
 def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
-        device=None):
+        device=None, resume: bool = True):
     _check_supported(cfg)
     if ctx is None:
         ctx = build_context(cfg, device=device)
@@ -496,14 +515,14 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         return hybrid_block(net, hist, smax_v, smin_v, sur, modal_pack,
                             fmask, base, ens), base
 
-    def refine(preds, hist, carry):
-        """Consensus, smoothing and the anchor, in the JAX package's
-        order."""
+    def refine(preds, hist, carry, anchor=True):
+        """Consensus, smoothing and the anchor (a resync block takes none),
+        in the JAX package's order."""
         if sur.pred_consensus:
             preds = prediction_consensus(preds, sp)
         if sur.pred_smooth and hist is not None:
             preds = smooth_preds(preds, hist.to(sdt), sur.pred_smooth)
-        if sur.pred_anchor:
+        if anchor and sur.pred_anchor:
             preds = anchor_block(sp, carry, preds)
         return preds
 
@@ -514,7 +533,32 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         else 1
     )
     np_dtype = torch.empty((), dtype=sdt).numpy().dtype
-    traj_full = np.empty((P, num_steps // se_run, sp.DL), dtype=np_dtype)
+    n_rec_total = num_steps // se_run
+    # every segment (warm-up, block groups, resync blocks, ragged tail,
+    # fallback blocks) writes in order at rec_off; with ckpt_every the
+    # buffer is a disk-backed memmap beside a state file (stacked path)
+    use_ckpt = bool(cfg.solver.ckpt_every) and stacked_ok
+    tstore = None
+    ck_extras = {}
+    start_steps = 0
+    if use_ckpt:
+        # its "shared" slot holds the history window in a dtype that
+        # keeps it exactly (NumPy has no bfloat16; float32 holds it)
+        wdt = torch.float32 if hdt == torch.bfloat16 else hdt
+        tstore = TrajStore(
+            store.ckpt_dir("stage4"), P, sp.DL, S3, n_rec_total, W, sdt,
+            True, True, shared_dtype=wdt,
+        )
+        ck_expect = {
+            "num_steps": num_steps, "save_every": se_run, "P": P,
+            "DL": sp.DL, "n_sync": n_sync, "block": block,
+            "arch": arch, "hist_dtype": sur.hist_dtype or sur.dtype,
+        }
+        start_steps, ck_extras = tstore.resume_step(ck_expect, resume)
+        tstore.open(fresh=start_steps == 0)
+        traj_full = tstore.mm["traj"]
+    else:
+        traj_full = np.empty((P, n_rec_total, sp.DL), dtype=np_dtype)
     rec_off = 0
     tprof = {"warmup_s": 0.0, "blocks_s": 0.0}
 
@@ -524,42 +568,131 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         traj_full[:, rec_off : rec_off + a.shape[1]] = a
         rec_off += a.shape[1]
 
+    # one group's recorded blocks wait on the device until the next
+    # ordered writer (the next group, a resync block, a checkpoint, the
+    # tail) flushes them, so segments land in step order
+    pending = []
+
+    def flush_pending():
+        for a in pending:
+            write_seg(a)
+        pending.clear()
+
     synchronize(dev)
     t_start = time.perf_counter()
-    d0 = sp.localize(prob.d0)
-    dn = sp.localize(prob.dn)
-    (traj0, shared0), carry = solver.run_streamed(
-        d0, dn, 0.0, n_sync, sync=True, record="all", save_every=se_run,
-    )
-    synchronize(dev)
-    tprof["warmup_s"] = time.perf_counter() - t_start
-    write_seg(traj0)
-    h0 = np.asarray(shared0[:, -W:], np.float64)
-
-    t_blocks = time.perf_counter()
-    full_blocks = (num_steps - n_sync) // block
-    if stacked_ok:
-        if hybrid_on:
+    if start_steps:
+        if verbose:
+            print(f"[online] resuming at step {start_steps}/{num_steps}")
+        rec_off = start_steps // se_run
+        carry = restore_carry(sp, ck_extras["d0"], ck_extras["dn"],
+                              ck_extras["tn"])
+        # the stored window (the hybrid's already holds residual rows)
+        h0 = np.asarray(tstore.mm["shared"], np.float64)
+    else:
+        d0 = sp.localize(prob.d0)
+        dn = sp.localize(prob.dn)
+        (traj0, shared0), carry = solver.run_streamed(
+            d0, dn, 0.0, n_sync, sync=True, record="all",
+            save_every=se_run,
+        )
+        synchronize(dev)
+        tprof["warmup_s"] = time.perf_counter() - t_start
+        write_seg(traj0)
+        h0 = np.asarray(shared0[:, -W:], np.float64)
+        if stacked_ok and hybrid_on:
             # the residual history: the warm-up's rows minus the base at
             # the same steps, evaluated on the host in float64
             h0 = h0 - feed.rows_at(np.arange(n_sync - h0.shape[1], n_sync,
                                              dtype=np.float64))
+
+    t_blocks = time.perf_counter()
+    full_blocks = (num_steps - n_sync) // block
+    resync = int(sur.resync_blocks or 0)
+    n_resync_steps = int(ck_extras.get("n_resync_steps", 0))
+    if stacked_ok:
         # the device-resident trailing window: the models' encoder input
         # and the smoothing's front edge
         hist = torch.as_tensor(h0, dtype=hdt).to(dev)
-        for b in range(full_blocks):
-            blockpred, base = block_preds(b, hist)
-            preds = refine(blockpred.to(sdt), hist, carry)
-            (traj_b, shared_b), carry = sp.stacked_run(
-                *carry, block, sync=False, preds=preds, record="all",
-                save_every=se_run,
-            )
-            roll = shared_b - base.to(shared_b.dtype) if hybrid_on \
-                else shared_b
-            hist = torch.cat([hist, roll.to(hdt)], dim=1)[:, -W:]
-            write_seg(traj_b)
+        # groups bounded by the bytes of their recorded trajectory (the
+        # JAX package's 500 MB), and by the resync period
+        per_block_bytes = 4 * P * (block // max(se_run, 1)) * sp.DL
+        GROUP = max(1, min(8, int(500_000_000 // max(per_block_bytes, 1))))
+        if resync:
+            GROUP = min(GROUP, resync)
+        done_blocks = int(ck_extras.get("done_blocks", 0))
+        since_resync = int(ck_extras.get("since_resync", 0))
+
+        def save_ckpt():
+            if tstore is None:
+                return
+            flush_pending()  # a resume replays from written rows only
+            tstore.mm["shared"][:] = hist.to(wdt).cpu().numpy()
+            tstore.save_state(
+                carry, n_sync + done_blocks * block, ck_expect,
+                extras={"done_blocks": done_blocks,
+                        "n_resync_steps": n_resync_steps,
+                        "since_resync": since_resync})
+
+        if use_ckpt and not start_steps:
+            save_ckpt()  # the warm-up is complete
+        # checkpoints on the ckpt_every step cadence, rounded up to whole
+        # groups (group boundaries are the only save points)
+        ckpt_blocks = done_blocks
+        ckpt_stride = max(1, -(-int(cfg.solver.ckpt_every or block)
+                               // block))
+        while done_blocks < full_blocks:
+            nb = min(GROUP, full_blocks - done_blocks)
+            if resync:
+                nb = min(nb, resync - since_resync)
+            group = []
+            for b in range(done_blocks, done_blocks + nb):
+                blockpred, base = block_preds(b, hist)
+                preds = refine(blockpred.to(sdt), hist, carry)
+                (traj_b, shared_b), carry = sp.stacked_run(
+                    *carry, block, sync=False, preds=preds, record="all",
+                    save_every=se_run,
+                )
+                roll = shared_b - base.to(shared_b.dtype) if hybrid_on \
+                    else shared_b
+                hist = torch.cat([hist, roll.to(hdt)], dim=1)[:, -W:]
+                group.append(traj_b)
+            flush_pending()
+            pending.extend(group)
+            done_blocks += nb
+            since_resync += nb
+            if resync and since_resync >= resync \
+                    and done_blocks < full_blocks:
+                # periodic re-synchronization: one exchanged block that
+                # blends the shared DOFs from the prediction (w = 0) to the
+                # computed dynamics (w = 1) along a smoothstep, releasing
+                # the interface layer's stored energy quasi-statically
+                # (a hard release rings), and re-anchors the history; its
+                # expfit rows (and the hybrid's base) are the host's
+                blockpred, base_s = block_preds(done_blocks, hist, n=block)
+                preds_s = refine(blockpred.to(sdt), hist, carry,
+                                 anchor=False)
+                tt = torch.linspace(0.0, 1.0, block, dtype=sdt, device=dev)
+                wramp = tt * tt * (3.0 - 2.0 * tt)
+                (traj_s, shared_s), carry = solver.run(
+                    *carry, block, sync=True, preds=preds_s, blend=wramp,
+                    record="all", save_every=se_run,
+                )
+                roll_s = shared_s
+                if hybrid_on:
+                    roll_s = roll_s - base_s.to(roll_s.dtype)
+                hist = torch.cat([hist, roll_s.to(hdt)], dim=1)[:, -W:]
+                flush_pending()
+                write_seg(traj_s)
+                done_blocks += 1
+                n_resync_steps += block
+                since_resync = 0
+            if done_blocks - ckpt_blocks >= ckpt_stride:
+                save_ckpt()
+                ckpt_blocks = done_blocks
             if verbose:
-                print(f"[online] step {n_sync + (b + 1) * block}/{num_steps}")
+                print(f"[online] step {n_sync + done_blocks * block}"
+                      f"/{num_steps}")
+        flush_pending()
         i = n_sync + full_blocks * block
         if i < num_steps:
             # ragged tail (< one block): the first rows of a full block's
@@ -588,7 +721,10 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         blocks=-(-(num_steps - n_sync) // block),
         seconds=round(elapsed, 3),
         steps_per_sec=round(num_steps / elapsed, 1),
-        comm_free_fraction=round((num_steps - n_sync) / num_steps, 4),
+        comm_free_fraction=round(
+            (num_steps - n_sync - n_resync_steps) / num_steps, 4),
+        resync_blocks=resync,
+        n_resync_steps=n_resync_steps,
         stacked_predictor=bool(stacked_ok),
         arch=arch,
         ensemble=ens,
@@ -607,6 +743,11 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         traj = traj[:, ::se, :]
     for r in range(P):
         save_displacement(store.modeled_h5(r), rank_trajectory(ctx, traj, r))
+    if tstore is not None:
+        # the artifacts are complete: drop the mid-run checkpoint, so a
+        # later (perhaps reconfigured) run of the stage starts fresh
+        del traj, traj_full
+        tstore.cleanup()
     return ctx
 
 
@@ -626,9 +767,12 @@ def _per_rank_blocks(cfg, ctx, models, carry, h0, n_sync, se_run,
     P, S3 = sp.n_parts, sp.sld.shape[1]
     W = sur.n_past * sur.filter_size
     num_steps, block = cfg.solver.num_steps, sur.block_size
-    if sur.pred_smooth and verbose:
+    ignored = [k for k in ("pred_smooth", "resync_blocks")
+               if getattr(sur, k)]
+    if ignored and verbose:
         print("[online] WARNING: per-rank fallback path ignores "
-              "pred_smooth (only honored on the stacked fast path)")
+              + ", ".join(ignored) + " (only honored on the stacked fast "
+              "path)")
     as_dev = lambda a: torch.as_tensor(  # noqa: E731
         np.array(a, np.float64), dtype=fdt).to(dev)
     nets = []
@@ -694,3 +838,29 @@ def _per_rank_blocks(cfg, ctx, models, carry, h0, n_sync, se_run,
         if verbose:
             print(f"[online] step {i}/{num_steps}")
     return carry
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="savtpu_torch stage 4: online "
+                                             "predictor")
+    ap.add_argument("--config", type=str, default=None)
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="checkpoint carry + trajectory at block-group "
+                         "boundaries (any nonzero value enables)")
+    ap.add_argument("--resume", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="resume from an existing stage-4 checkpoint "
+                         "(--no-resume starts fresh)")
+    ap.add_argument("--device", type=str, default="cuda")
+    args = ap.parse_args(argv)
+    cfg = Config.from_json(args.config) if args.config else Config()
+    if args.steps:
+        cfg.solver.num_steps = args.steps
+    if args.ckpt_every is not None:
+        cfg.solver.ckpt_every = args.ckpt_every
+    run(cfg, device=args.device, resume=args.resume)
+
+
+if __name__ == "__main__":
+    main()

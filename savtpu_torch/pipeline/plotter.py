@@ -7,10 +7,17 @@ exchanged one over all non-shared DOFs, in the window of stored rows from
 non-shared node; written to ``comparison_metrics.json``. The figure
 (``Comparison.pdf``) is drawn by :func:`write_comparison_pdf`, which
 imports matplotlib when called; ``run`` does not call it.
+
+    python -m savtpu_torch.pipeline.plotter [--config cfg.json]
+        [--device cpu]
+
+The stage is host work; ``--device`` (CUDA by default) is checked as in
+every stage's command line, so a run never takes the CPU unasked.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 from pathlib import Path
 
@@ -18,7 +25,7 @@ import numpy as np
 
 from ..config import Config
 from ..io.artifacts import ArtifactStore, load_displacement
-from ..utils import stage_log
+from ..utils import resolve_device, stage_log
 
 
 def nonshared_dof_mask(local_nodes, shared):
@@ -110,3 +117,18 @@ def write_comparison_pdf(cfg: Config, metrics: dict,
     fig.savefig(out)
     plt.close(fig)
     return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="savtpu_torch stage 5: "
+                                             "comparison")
+    ap.add_argument("--config", type=str, default=None)
+    ap.add_argument("--device", type=str, default="cuda")
+    args = ap.parse_args(argv)
+    resolve_device(args.device)
+    cfg = Config.from_json(args.config) if args.config else Config()
+    run(cfg)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,23 @@
 """Stage 2: extract the shared-DOF displacement traces (port of
 ``savtpu/pipeline/shared_extraction.py``, serial): per rank, map the
 shared global node ids to local DOF rows using only the stage-1 CSV
-artifacts, and save those rows of the stored history."""
+artifacts, and save those rows of the stored history.
+
+    python -m savtpu_torch.pipeline.shared_extraction [--config cfg.json]
+        [--device cpu]
+
+The stage is host work; ``--device`` (CUDA by default) is checked as in
+every stage's command line, so a run never takes the CPU unasked."""
 
 from __future__ import annotations
 
+import argparse
 
 import numpy as np
 
 from ..config import Config
 from ..io.artifacts import ArtifactStore, load_displacement, save_displacement
-from ..utils import stage_log
+from ..utils import resolve_device, stage_log
 
 
 def shared_dof_indices(local_nodes: np.ndarray, shared: np.ndarray) -> np.ndarray:
@@ -35,3 +42,18 @@ def run(cfg: Config, n_parts: int | None = None):
     stage_log(cfg).log(
         "stage2_extract", ranks=n_parts, shared_dofs_per_rank=sizes
     )
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="savtpu_torch stage 2: shared "
+                                             "extraction")
+    ap.add_argument("--config", type=str, default=None)
+    ap.add_argument("--device", type=str, default="cuda")
+    args = ap.parse_args(argv)
+    resolve_device(args.device)
+    cfg = Config.from_json(args.config) if args.config else Config()
+    run(cfg)
+
+
+if __name__ == "__main__":
+    main()

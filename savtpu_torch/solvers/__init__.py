@@ -1,4 +1,9 @@
 from .problem import AssembledProblem, setup_problem
-from .steady import steady_displacement
+from .steady import (
+    ghost_step_init,
+    ghost_step_init_cg,
+    steady_displacement,
+)
 
-__all__ = ["AssembledProblem", "setup_problem", "steady_displacement"]
+__all__ = ["AssembledProblem", "setup_problem", "ghost_step_init",
+           "ghost_step_init_cg", "steady_displacement"]

@@ -2,8 +2,10 @@
 (port of ``savtpu/solvers/problem.py``).
 
 CFL dt, lumped mass, pre-assembled external force, Dirichlet DOFs and the
-ghost step, as host tensors. Assembly ALWAYS runs in float64 on the host
-and is then cast to the run dtype: assembling in float32 costs ~500x
+ghost step (0 under a ramped load; the consistent-mass solve of
+``solvers/steady.py`` under an unramped one), as host tensors. Assembly
+ALWAYS runs in float64 on the host and is then cast to the run dtype:
+assembling in float32 costs ~500x
 trajectory accuracy (element integrals, lumped mass and the ghost init all
 lose bits that the stepper then amplifies over 1e5 steps).
 """
@@ -27,6 +29,7 @@ from ..ops.assembly import (
 )
 from ..ops.element import batch_element_mkf, gather_coords
 from ..ops.material import LinearElastic
+from .steady import ghost_step_init, ghost_step_init_cg
 
 
 @dataclass
@@ -87,17 +90,12 @@ def setup_problem(
     if sol.deg != 1:
         raise NotImplementedError(
             "only P1 tets are ported (the P2 path is steady-only in the "
-            "JAX package)"
+            "JAX package; ROADMAP A12c)"
         )
     if mat_cfg.model not in ("linear", "neo_hookean"):
         raise ValueError(
             f"unknown material.model {mat_cfg.model!r}; expected "
             "'linear' or 'neo_hookean'"
-        )
-    if not mat_cfg.ramped:
-        raise NotImplementedError(
-            "an unramped load needs the ghost-step solve, which is not "
-            "ported yet"
         )
     if mesh is None:
         mesh = load_mesh(cfg)
@@ -143,9 +141,16 @@ def setup_problem(
     mask = dirichlet_mask(ndof, ddofs)
 
     # ghost step d_{-1}: with a ramped load F(0) = 0 and zero initial data
-    # the initial acceleration is 0, so d_{-1} = 0 analytically
+    # the initial acceleration is 0, so d_{-1} = 0 analytically; an
+    # unramped load solves M a0 = F(0) - K d0 with the consistent mass
+    # (dense up to 6144 DOFs, CG beyond)
     d0 = torch.zeros((ndof,), dtype=torch.float64)
-    dn = torch.zeros((ndof,), dtype=torch.float64)
+    if mat_cfg.ramped:
+        dn = torch.zeros((ndof,), dtype=torch.float64)
+    else:
+        ghost = ghost_step_init if ndof <= 6144 else ghost_step_init_cg
+        dn = ghost(Me, Ke, Fe, edofs, ndof, ddofs, d0, torch.zeros_like(d0),
+                   float(dt))
 
     prob = AssembledProblem(
         mesh=mesh,

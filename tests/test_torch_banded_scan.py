@@ -64,7 +64,7 @@ def _pair(cells, dtype="float64", n_parts=2):
     )
     st = TShardedProblem.build(
         pt, t_maps(m.tetra, ep, m.num_points, dn), fint_mode="banded",
-        dtype=getattr(torch, dtype),
+        dtype=getattr(torch, dtype), device="cpu"
     )
     return sj, st
 

@@ -104,7 +104,7 @@ def test_chunk_cache_keys_by_modes():
     chunk, and its result is the new mode's."""
     prob, maps, cell = chip_smoke.box_setup(SIZE)
     sp = ShardedProblem.build(prob, maps, fint_mode="stencil",
-                              exchange_mode="grid")
+                              exchange_mode="grid", device="cpu")
     d0 = sp.localize(chip_smoke.strained(prob, cell))
     t0 = torch.tensor(0.0, dtype=sp.dtype)
     kw = dict(sync=True, preds=None, record="traj", save_every=1)

@@ -68,7 +68,7 @@ def _pair(fint_mode, dtype="float64", cells=(8, 1, 1), n_parts=2,
     )
     st = TShardedProblem.build(
         pt, t_maps(m.tetra, ep, m.num_points, dn), fint_mode=fint_mode,
-        dtype=getattr(torch, dtype), compensated=compensated,
+        dtype=getattr(torch, dtype), compensated=compensated, device="cpu"
     )
     return pt, sj, st
 
@@ -115,8 +115,8 @@ def _preds(st, steps, seed=1):
 
 def test_unknown_fint_mode_rejected():
     """A misspelt mode is a ValueError, as in savtpu, and so is 'nh'
-    without a Neo-Hookean material; a mode of savtpu the port has not
-    ported yet is a NotImplementedError."""
+    without a Neo-Hookean material; every mode of savtpu builds, ell and
+    ebe giving the dense mode's forces."""
     from savtpu_torch.config import Config
     from savtpu_torch.mesh import dirichlet_nodes
     from savtpu_torch.parallel import (
@@ -135,12 +135,20 @@ def test_unknown_fint_mode_rejected():
         m.tetra, partition_elements(m.tetra, m.points, 2), m.num_points,
         dirichlet_nodes(m.triangles, m.points))
     with pytest.raises(ValueError, match="unknown fint_mode"):
-        ShardedProblem.build(prob, maps, fint_mode="palas")  # typo
+        ShardedProblem.build(prob, maps, fint_mode="palas",  # typo
+                             device="cpu")
+    dense = ShardedProblem.build(prob, maps, fint_mode="dense", device="cpu")
+    d = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (dense.n_parts, dense.DL))) * dense.dof_mask
+    want = dense._fint_stacked(d)
     for mode in ("ell", "ebe"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ShardedProblem.build(prob, maps, fint_mode=mode)
+        sp = ShardedProblem.build(prob, maps, fint_mode=mode, device="cpu")
+        assert sp.fint_mode == mode
+        got = sp._fint_stacked(d)
+        assert float((got - want).abs().max()) <= 1e-12 * float(
+            want.abs().max())
     with pytest.raises(ValueError, match="NeoHookean"):
-        ShardedProblem.build(prob, maps, fint_mode="nh")
+        ShardedProblem.build(prob, maps, fint_mode="nh", device="cpu")
 
 
 def test_pallas_padding_and_matvec_matches_dense():
@@ -307,7 +315,7 @@ def test_converted_pallas_problem_matches_savtpu():
     arrays = {k: (np.asarray(v) if hasattr(v, "shape") else v)
               for k, v in arrays.items()}
     assert arrays["DL"] > st.DL  # savtpu padded
-    sc, _ = from_savtpu_arrays(arrays)
+    sc, _ = from_savtpu_arrays(arrays, device="cpu")
     assert sc.DL == st.DL and sc.fint_mode == "pallas"
     for k in ("dof_mask", "bc_mask", "sld"):
         torch.testing.assert_close(getattr(sc, k), getattr(st, k), rtol=0,

@@ -7,7 +7,9 @@ banded and with the windowed Neo-Hookean layout, and the periodic tube
 on its box stencil with the seam-wrapped grid exchange) and its
 ``--quick`` sweep run on the CPU, with every package the card's machine lacks
 blocked: JAX, flax, optax, h5py, meshio, matplotlib, and
-savtpu itself. Runs in a subprocess whose import system refuses those
+savtpu itself; then the solver-options slice (ell and ebe forces, the
+permute exchange, an unramped load, resync blocks, checkpoints) and a
+stage's command line. Runs in a subprocess whose import system refuses those
 names."""
 
 import subprocess
@@ -194,9 +196,44 @@ SCRIPT = textwrap.dedent(
     out = {workdir!r} + "/sweep.json"
     assert sweep.main(["--quick", "--device", "cpu", "--out", out]) == 0
     res = json.load(open(out))
-    assert [r["mesh"] for r in res["results"]] == ["25x1x1"], res
-    assert res["results"][0]["sync_avoiding_steps_per_sec"] > 0
-    assert [r["fint_mode"] for r in res["skipped"]] == ["ell"], res
+    assert [r["mesh"] for r in res["results"]] == ["25x1x1", "48x4x4"], res
+    assert [r["fint_mode"] for r in res["results"]] == ["dense", "ell"], res
+    assert all(r["sync_avoiding_steps_per_sec"] > 0
+               for r in res["results"]), res
+    assert res["skipped"] == [], res
+    # the solver-options slice: ell forces, the permute exchange, an
+    # unramped load, resync blocks and checkpoints in stages 1 and 4;
+    # then stage 1's command line in ebe mode, resuming nothing
+    cfg = Config()
+    cfg.workdir = {workdir!r} + "/options/Results"
+    cfg.model_dir = {workdir!r} + "/options/Distributed_save"
+    cfg.beam_cells = (6, 1, 1)
+    cfg.beam_extent = (6.0, 1.0, 1.0)
+    cfg.partition.n_parts = 2
+    cfg.material.ramped = False
+    cfg.solver.num_steps = 150
+    cfg.solver.fint_mode = "ell"
+    cfg.solver.exchange_mode = "permute"
+    cfg.solver.ckpt_every = 40
+    s = cfg.surrogate
+    s.n_past, s.n_future, s.filter_size = 4, 4, 5
+    s.arch = "expfit"
+    s.modal_dim = 3
+    s.expfit_order = 8
+    s.resync_blocks = 2
+    metrics = run_all.run(cfg, verbose=False, device="cpu")
+    assert metrics["global_rel_l2_nonshared"] == metrics[
+        "global_rel_l2_nonshared"]
+    ev = [json.loads(ln) for ln in open(cfg.workdir + "/metrics.jsonl")]
+    assert [r for r in ev if r["event"] == "stage4_online"][-1][
+        "n_resync_steps"] == 40
+    from savtpu_torch.pipeline import data_prepare
+
+    cfg.solver.fint_mode = "ebe"
+    cfg.to_json({workdir!r} + "/options/cfg.json")
+    data_prepare.main(["--config", {workdir!r} + "/options/cfg.json",
+                       "--device", "cpu", "--no-resume"])
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("IMPORTED", len(names))

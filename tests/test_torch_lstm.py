@@ -253,10 +253,11 @@ def test_fit_stacked_refuses_what_is_not_ported():
     """Mixed teacher forcing, dropout and the linear arch are ported. The
     stacked fit decodes recursively whatever the method and dropouts say,
     as savtpu's fit_stacked does (bit for bit the recursive fit); the
-    linear arch fits ridge maps. What stays refused: stage 4's resync
-    blocks and checkpoints, and what savtpu's trainers refuse (a
-    stochastic decode over chained windows, targets of the wrong
-    length)."""
+    linear arch fits ridge maps. Stage 4's resync blocks and checkpoints
+    pass its check (their runs: tests/test_torch_resync.py and
+    test_torch_checkpoint.py); a negative period is refused. What stays
+    refused is what savtpu's trainers refuse (a stochastic decode over
+    chained windows, targets of the wrong length)."""
     from savtpu_torch.models.linear import StackedLinear
     from savtpu_torch.models.training import fit
     from savtpu_torch.pipeline import online_predictor
@@ -285,5 +286,8 @@ def test_fit_stacked_refuses_what_is_not_ported():
         c = Config()
         setattr(c.surrogate if attr == "resync_blocks" else c.solver, attr,
                 val)
-        with pytest.raises(NotImplementedError):
+        online_predictor._check_supported(c)
+        setattr(c.surrogate if attr == "resync_blocks" else c.solver, attr,
+                -val)
+        with pytest.raises(ValueError):
             online_predictor._check_supported(c)

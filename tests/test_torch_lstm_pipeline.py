@@ -169,8 +169,10 @@ def test_stage3_on_savtpu_traces(savtpu_run, tmp_path):
 
 
 def test_stage3_and_stage4_refuse_what_is_not_ported(tmp_path):
-    """What stays refused: stage 4's resync blocks and checkpoints. The
-    surrogate settings ported since (per-rank models, seed ensembles,
+    """Stage 4's resync blocks and checkpoints pass its check (their runs
+    are held to savtpu's in tests/test_torch_resync.py and
+    test_torch_checkpoint.py); a negative period or cadence is refused.
+    The surrogate settings ported since (per-rank models, seed ensembles,
     the linear and hybrid archs, mixed teacher forcing) pass stage 4's
     check (their runs are held to savtpu's in
     tests/test_torch_{per_rank,ensemble,linear,hybrid}.py); stage 3
@@ -180,10 +182,14 @@ def test_stage3_and_stage4_refuse_what_is_not_ported(tmp_path):
     for attr, val in (("resync_blocks", 2),):
         c = _cfg(TConfig, tmp_path, "float32", False)
         setattr(c.surrogate, attr, val)
-        with pytest.raises(NotImplementedError):
+        online_predictor._check_supported(c)
+        setattr(c.surrogate, attr, -val)
+        with pytest.raises(ValueError):
             online_predictor._check_supported(c)
     tc.solver.ckpt_every = 100
-    with pytest.raises(NotImplementedError):
+    online_predictor._check_supported(tc)
+    tc.solver.ckpt_every = -100
+    with pytest.raises(ValueError):
         online_predictor._check_supported(tc)
     for attr, val in (("stacked", False), ("ensemble", 2),
                       ("arch", "linear"), ("arch", "hybrid"),

@@ -74,7 +74,7 @@ def _pair(case, dtype="float64", **extra):
         material=JNeoHookean.from_engineering(**MAT), **kw)
     st = TShardedProblem.build(
         pt, t_maps(m.tetra, ep, m.num_points, dn),
-        material=TNeoHookean.from_engineering(**MAT), **kw)
+        material=TNeoHookean.from_engineering(**MAT), **kw, device="cpu")
     assert st.fint_mode == sj.fint_mode == "nh"
     assert st.nhs_dims == sj.nhs_dims
     np.testing.assert_array_equal(st.local_dofs_global, sj.local_dofs_global)
@@ -148,7 +148,7 @@ def test_stencil_equals_incident_and_element_twin():
                   dirichlet_nodes(m.triangles, m.points))
     mat = TNeoHookean.from_engineering(**MAT)
     si = TShardedProblem.build(pt, maps, material=mat, nh_stencil="off",
-                               nh_gather="incident")
+                               nh_gather="incident", device="cpu")
     assert si.nhs_dims is None and ss.nhs_dims is not None
     rng = np.random.default_rng(1)
     dg = 1e-2 * rng.standard_normal(pt.ndof)
@@ -231,7 +231,8 @@ def test_window_layout_equals_savtpu():
     sj = JShardedProblem.build(pj, mj,
                                material=JNeoHookean.from_engineering(**MAT))
     mat = TNeoHookean.from_engineering(**MAT)
-    built = {g: TShardedProblem.build(pt, mt, material=mat, nh_gather=g)
+    built = {g: TShardedProblem.build(pt, mt, material=mat, nh_gather=g,
+                                      device="cpu")
              for g in ("auto", "window", "incident")}
     st = built["auto"]
     assert st.nhw_W == sj.nhw_W == built["window"].nhw_W
@@ -260,7 +261,7 @@ def test_window_layout_equals_savtpu():
             acc[sp.local_dofs_global[p, :n]] += F[p, :n]
     assert np.abs(fw - fi).max() / np.abs(fi).max() < TOL["float64"]
     with pytest.raises(ValueError, match="NeoHookean"):
-        TShardedProblem.build(pt, mt, fint_mode="nh")
+        TShardedProblem.build(pt, mt, fint_mode="nh", device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["nh", "stencil"])
@@ -317,7 +318,7 @@ def test_converted_problem_steps_like_savtpu(mode):
         _, sj, _ = lin_pair((8, 4, 4), 16,
                             **({"fint_mode": "stencil"} if mode == "stencil"
                                else {"exchange_mode": "grid"}))
-    sc, _ = from_savtpu_arrays(_savtpu_arrays(sj))
+    sc, _ = from_savtpu_arrays(_savtpu_arrays(sj), device="cpu")
     assert sc.fint_mode == sj.fint_mode
     assert sc.exchange_mode == sj.exchange_mode
     d0 = _strained(sc)

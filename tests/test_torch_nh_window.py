@@ -64,7 +64,7 @@ def _pair(case, **kw):
         material=JNeoHookean.from_engineering(**MAT), **kw)
     st = TShardedProblem.build(
         probs[1], t_maps(m.tetra, ep, m.num_points, dn),
-        material=TNeoHookean.from_engineering(**MAT), **kw)
+        material=TNeoHookean.from_engineering(**MAT), **kw, device="cpu")
     assert sj.nhw_W is not None and st.nhw_W == sj.nhw_W
     return probs[1], sj, st
 
@@ -156,7 +156,8 @@ def test_window_force_equals_savtpu_and_incident(case):
     inc = TShardedProblem.build(
         pt, t_maps(pt.mesh.tetra, st.maps.epart, pt.mesh.num_points,
                    dirichlet_nodes(pt.mesh.triangles, pt.mesh.points)),
-        material=TNeoHookean.from_engineering(**MAT), nh_gather="incident")
+        material=TNeoHookean.from_engineering(**MAT), nh_gather="incident",
+        device="cpu")
     fi = inc._fint_stacked(inc.localize(dg)).numpy()
     gw, gi = np.zeros(pt.ndof), np.zeros(pt.ndof)
     for sp, F, acc in ((st, got, gw), (inc, fi, gi)):

@@ -197,7 +197,7 @@ def _port_problem():
     arrays = {k: getattr(sp, k) for k in fields}
     arrays = {k: (np.asarray(v) if hasattr(v, "shape") else v)
               for k, v in arrays.items()}
-    st, _ = from_savtpu_arrays(arrays)
+    st, _ = from_savtpu_arrays(arrays, device="cpu")
     return prob, sp, st
 
 
@@ -402,7 +402,7 @@ def test_online_gate_agrees_with_savtpu(compensated):
     arrays = {k: getattr(sj, k) for k in fields}
     arrays = {k: (np.asarray(v) if hasattr(v, "shape") else v)
               for k, v in arrays.items()}
-    st, _ = from_savtpu_arrays(arrays)
+    st, _ = from_savtpu_arrays(arrays, device="cpu")
     seen = set()
     for sync, use_preds, record, save_every, steps in itertools.product(
             (True, False), (False, True), ("all", "traj", "shared", "none"),

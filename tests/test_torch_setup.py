@@ -128,7 +128,7 @@ def test_sharded_build_arrays(fint_mode):
     sj = JShardedProblem.build(pj, j_maps(m.tetra, ep, m.num_points, dn),
                                fint_mode=fint_mode, compensated=True)
     st = TShardedProblem.build(pt, maps, fint_mode=fint_mode,
-                               compensated=True)
+                               compensated=True, device="cpu")
     assert (st.DL, st.SD, st.fint_mode) == (sj.DL, sj.SD, sj.fint_mode)
     _maps_equal(sj.maps, st.maps)
     np.testing.assert_array_equal(st.local_dofs_global, sj.local_dofs_global)

@@ -61,7 +61,7 @@ def _pair(dtype, fint_mode, compensated):
     )
     st = TShardedProblem.build(
         pt, t_maps(m.tetra, ep, m.num_points, dn), fint_mode=fint_mode,
-        dtype=getattr(torch, dtype), compensated=compensated,
+        dtype=getattr(torch, dtype), compensated=compensated, device="cpu"
     )
     return pt, sj, st
 

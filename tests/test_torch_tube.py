@@ -127,10 +127,12 @@ def _pair(dims, n_parts, material, **kw):
         sj = JShardedProblem.build(
             pj, mj, material=JNeoHookean.from_engineering(**MAT), **kw)
         st = TShardedProblem.build(
-            pt, mt, material=TNeoHookean.from_engineering(**MAT), **kw)
+            pt, mt, material=TNeoHookean.from_engineering(**MAT), **kw,
+            device="cpu")
     else:
         sj = JShardedProblem.build(pj, mj, fint_mode="stencil", **kw)
-        st = TShardedProblem.build(pt, mt, fint_mode="stencil", **kw)
+        st = TShardedProblem.build(pt, mt, fint_mode="stencil",
+                                   device="cpu", **kw)
     assert st.nhs_dims == sj.nhs_dims and st.nhs_wrap == sj.nhs_wrap
     np.testing.assert_array_equal(st.nhs_Gc.numpy(), np.asarray(sj.nhs_Gc))
     np.testing.assert_array_equal(st.nhs_dJwc.numpy(),
@@ -153,9 +155,9 @@ def test_stencil_force_equals_savtpu_and_gather_paths(n_parts, material):
     if material == "nh":
         ref = TShardedProblem.build(
             pt, mt, material=TNeoHookean.from_engineering(**MAT),
-            nh_stencil="off", nh_gather="incident")
+            nh_stencil="off", nh_gather="incident", device="cpu")
     else:
-        ref = TShardedProblem.build(pt, mt, fint_mode="dense")
+        ref = TShardedProblem.build(pt, mt, fint_mode="dense", device="cpu")
     fr = ref._fint_stacked(ref.localize(dg)).numpy()
     assert _max_rel(_by_global(st, got, pt.ndof),
                     _by_global(ref, fr, pt.ndof)) < TOL
