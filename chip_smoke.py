@@ -4,25 +4,33 @@
     python3 chip_smoke.py [--steps N] [--dtype float32|float64]
                           [--lstm-epochs E] [--nh-steps N]
                           [--surrogate-epochs E] [--leg-epochs E]
-                          [--tube-steps N]
+                          [--tube-steps N] [--pcg-big]
 
 ``--steps`` sets the depth of the slice and of irregular_96 (default
 9,000; 100,000 is the published schedule); ``--dtype`` the slice's state
 dtype in phase 3 (default float32, as published; float64, also
 compensated so that it runs the same kernel, separates round-off from
 the rest). ``--lstm-epochs`` sets the default configuration's training
-depth (default 200, cut from the published 3,450 to keep the script
-within about 560 s: 300 until the unstructured paths came);
-``--nh-steps`` nh_box_96's depth (default 50,000, the least that lets
-expfit fit past the load ramp with margin; 100,000 published);
+depth (default 150, cut from the published 3,450 to keep the script
+within about 560 s: 300 until the unstructured paths came, 200 until the
+serial-solver and steady paths did);
+``--nh-steps`` nh_box_96's depth (default 40,000, which lets expfit fit
+past the load ramp with 143 stored rows, 64 needed; 50,000 until the
+serial-solver and steady paths came; 100,000 published);
 ``--surrogate-epochs`` the training epochs of the hybrids (nh_box_96's
-and tube_hybrid's residual LSTMs, default 100); ``--leg-epochs`` those
-of the default run's ensemble and per-rank legs (default 30: 100 until
-the unstructured paths came, 50 until the solver-options paths did;
-their stages 4-5 run the first 30,000 of its 100,000 steps);
-``--tube-steps`` tube_hybrid's depth (default 60,000, which clears its
-load ramp by 352 stored rows; 100,000 published). The stage-3 epoch timing of phase 4 replays 10 epochs (20
-until the unstructured paths came).
+and tube_hybrid's residual LSTMs, default 60: 100 until the
+serial-solver and steady paths came); ``--leg-epochs`` those of the
+default run's ensemble and per-rank legs (default 20: 100 until the
+unstructured paths came, 50 until the solver-options paths did, 30 until
+the serial-solver and steady paths did;
+their stages 4-5 run the first 21,000 of its 100,000 steps, 30,000
+until the serial-solver and steady paths came); ``--tube-steps``
+tube_hybrid's depth (default 45,000, which clears its load ramp by 127
+stored rows; 60,000 until the serial-solver and steady paths came;
+100,000 published). The stage-3 epoch timing of phase 4 replays 10 epochs (20
+until the unstructured paths came). ``--pcg-big`` adds the steady solve
+of the 192x12x12 beam (97,851 DOFs) by two-level PCG and by SciPy's
+direct solver, both timed, to phase 2 (``steady_pcg_192x12x12``).
 
 Phases, each reported with its seconds and the running total against a
 600 s budget:
@@ -90,7 +98,19 @@ Phases, each reported with its seconds and the running total against a
    replayed from CUDA graphs against the eager loop, bit for bit; the
    unramped load's ghost step on the card against the CPU, dense on the
    default beam (1e-12) and CG on a 42x6x6 beam of 6,321 DOFs (1e-10;
-   control: the CG stopped at half its iterations);
+   control: the CG stopped at half its iterations); then the
+   serial-solver and steady slice in float64: the serial explicit runner
+   over FIntOperator dense, ebe and bcoo on the card against the CPU, and
+   the card's 2-part exchanged run against it, on the default beam over
+   2,000 steps, "auto" resolving as savtpu's (1e-12; control: one
+   element's K_e zeroed); NeoHookeanFIntOperator's serial run on the
+   card against the sharded Neo-Hookean stencil run at nh_box_96's
+   layout (96x8x8, 16 box parts, grid exchange) over 200 steps from rest
+   (1e-8; control: one element dropped); the steady routes: the dense
+   route on the default beam card against CPU (1e-10), two-level PCG at
+   96x8x8 (23,571 DOFs) against SciPy's direct solve (1e-7; residual at
+   most twice the direct's, both solves timed; control: PCG stopped at an
+   eighth of its iterations), ``eigen_modes`` card against CPU (1e-10);
 3. the paths: the slice, the five-stage pipeline (96x8x8 beam, 16 RCB
    parts, float32 compensated, banded, expfit modal-8 surrogate, 9,000
    steps) through ``api.Simulation(cfg).run_all``'s stages, with the K3
@@ -113,7 +133,7 @@ Phases, each reported with its seconds and the running total against a
    seconds, epochs/s, ridge lambdas, rel-L2, warm-up rows bit for bit);
    and nh_box_96 (96x8x8, 16 box parts, Neo-Hookean on the stencil, the
    grid exchange, float32 compensated, expfit order 16 modal 16 on the
-   first 75% of 50,000 steps) through the same stages: stage seconds and
+   first 75% of 40,000 steps) through the same stages: stage seconds and
    stepping rates, the built problem's mode, stencil dims and exchange,
    every rank's expfit past the load ramp (not the frozen-ramp
    fallback), warm-up rows equal to stage 1's bit for bit, the rel-L2
@@ -127,9 +147,11 @@ Phases, each reported with its seconds and the running total against a
    consensus, cut-off 0.75, --steps deep) with K3 once per comm-free
    block, and tube_hybrid (tube 2x24x48 read from an ASCII .msh, clamped
    at z = 0, 8 RCB parts, dense, float32 compensated, the stacked hybrid
-   with expfit order 16 modal 16, cut-off 0.75, consensus on, 60,000
+   with expfit order 16 modal 16, cut-off 0.75, consensus on, 45,000
    steps), each with its stage seconds, rates, rel-L2 globally and per
-   rank, warm-up rows bit for bit and K1-K4 launches counted from 0; and
+   rank, warm-up rows bit for bit, K1-K4 launches counted from 0, and
+   stage 1's steady solve (route, PCG iterations, seconds) against
+   SciPy's direct solve (seconds, distance within 1e-7); and
    the solver-options slice: ``slice_resync`` (the slice's stage 4 again
    from its stage 1-3 artifacts with ``resync_blocks = 1``: one K3 block,
    one blended exchanged block without a kernel, warm-up rows bit for
@@ -144,6 +166,14 @@ Phases, each reported with its seconds and the running total against a
    finite) and the sweep's ell and permute cases (96x8x8/64 ell,
    48x4x4/8 and 96x8x8/64 dense permute, 192x12x12/64 banded permute
    with K4 once per comm-free run; 384x16x16/256 left out for time);
+   and the serial-solver and steady slice: ``p2_steady`` (the stage-1
+   command line at ``solver.deg = 2`` on a 48x4x4 beam, 23,571 DOFs by
+   PCG, on the card and with ``--device cpu``: the VTK written, the two
+   within 1e-8, the tip within 30% of Euler-Bernoulli, build_context
+   refusing deg = 2 with savtpu's message) and ``stage3_grid`` (the
+   stage-3 command line with ``--grid-lrs`` of two rates at 10 epochs on
+   the default run's stage 1-2 artifacts: two run-tag directories, each
+   rank's model.npz, finite losses, seconds);
 4. kernel timing with CUDA events: kernel, plain version, bound (and for
    K2, K3 and K4 the floor of re-reading the operator from HBM every
    step), the plan K3 and K4 ran with, the PyTorch call that computes
@@ -159,7 +189,14 @@ Phases, each reported with its seconds and the running total against a
    same profile of irregular_96's exchanged banded step, of the tube
    4x48x256/64 stencil step with the seam-wrapped grid exchange, and of
    the irregular 96x8x8/16 Neo-Hookean step in the windowed layout and
-   with the incident list.
+   with the incident list; then ``roofline_profile_offload``: the share
+   of the HBM peak (``utils/roofline.py``: bytes_floor_per_step over the
+   measured steps/s; K4's with its band plan, less the rows it keeps
+   resident) of the slice's exchanged stepper and of the sweep's K1 and
+   K4 rows, none above 100%; ``profile_trace`` around 100 replayed slice
+   steps (its Chrome trace names the step's kernels), and ``fetch_into``
+   against one direct copy and a bulk ``.cpu()`` of the slice's
+   trajectory and of its full-depth size, GB/s each.
 
 ``--keep-traces DIR`` saves the slice's departing and median ranks'
 stage-2 traces for ``scripts/c2_refit_witness.py``.
@@ -192,32 +229,38 @@ SAVE_EVERY = 50
 # the default-config run's training depth: cut from the published 3,450
 # epochs so that the script, with the surrogate legs and the unstructured
 # paths, stays within about 560 s (PERF.md); --lstm-epochs 3450 runs it
-# in full (300 until the unstructured slice took 34 s of its stage 3)
-LSTM_EPOCHS = 200
-# nh_box_96's depth: 0.75 x 50,000 steps clears the 1 s load ramp (step
-# 22,825 at its dt of 4.38e-5 s) by 293 stored rows, so that stage 3 fits
-# expfit's post-ramp segment (the published depth is 100,000)
-NH_STEPS = 50_000
+# in full (300 until the unstructured slice took 34 s of its stage 3,
+# 200 until the serial-solver and steady slice took about 30 s)
+LSTM_EPOCHS = 150
+# nh_box_96's depth: 0.75 x 40,000 steps clears the 1 s load ramp (step
+# 22,825 at its dt of 4.38e-5 s) by 143 stored rows, more than the 64 that
+# expfit's post-ramp segment needs at order 16, so that stage 3 fits it
+# (the published depth is 100,000; 50,000 until the serial-solver and
+# steady slice needed the time)
+NH_STEPS = 40_000
 # training epochs of the hybrids' residual LSTMs (nh_box_96, tube_hybrid),
-# cut from the published 3,450
-SURROGATE_EPOCHS = 100
+# cut from the published 3,450 (100 until the serial-solver and steady
+# slice; at 100 the residual LSTMs learned nothing, R^2 about 0)
+SURROGATE_EPOCHS = 60
 # training epochs of the default run's ensemble and per-rank legs (100
 # until the unstructured slice took 25 s of them, 50 until the
-# solver-options slice took 12 s more)
-LEG_EPOCHS = 30
+# solver-options slice took 12 s more, 30 until the serial-solver and
+# steady slice)
+LEG_EPOCHS = 20
 # the depth of the default run's second, pallas-mode stage 4: the warm-up
 # and six whole 3,000-step blocks (100,000 until the solver-options slice
 # needed its time; most of it went to compressed .npz writes)
 K1_LEG_STEPS = 21_000
 # the depth of the surrogate legs' stages 4-5 on the default run's stage
-# 1-2 artifacts: the warm-up and nine whole 3,000-step blocks (100,000
+# 1-2 artifacts: the warm-up and six whole 3,000-step blocks (100,000
 # until the sweep's 96x8x8/64 permute check and run-to-run spread needed
-# the time; their stage 4 was mostly compressed .npz writes)
-LEG_STEPS = 30_000
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s off the
-# tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
+# the time, 30,000 until the serial-solver and steady slice did; their
+# stage 4 is mostly compressed .npz writes)
+LEG_STEPS = 21_000
+# the card's peaks, HBM bytes/s and float32 FLOP/s off the tensor cores:
+# set in main from savtpu_torch.utils.roofline.device_peaks (the H100 SXM
+# data sheet's 3.35e12 and 67e12), the table the package's roofline reads
+PEAK_BYTES = PEAK_F32 = None
 
 
 class Clock:
@@ -1463,8 +1506,9 @@ def run_lstm_path(root: Path, dev, epochs, leg_epochs):
     """Phase 3's default-config run through api.Simulation, then its
     stage 4 again from a copy of the workdir in fint_mode "pallas", where
     K1 runs every step, then the surrogate legs on its stage 1-2
-    artifacts (:func:`run_surrogate_legs`). Returns the phase's readings
-    and the legs', each with "failures"."""
+    artifacts (:func:`run_surrogate_legs`), then stage 3's grid on them
+    (:func:`run_stage3_grid`). Returns the phase's readings, the legs'
+    and the grid's, each with "failures"."""
     import numpy as np
 
     from savtpu_torch.io.artifacts import ArtifactStore, load_displacement
@@ -1530,8 +1574,11 @@ def run_lstm_path(root: Path, dev, epochs, leg_epochs):
                              "one beyond 1e-5"),
     ) if bad]
     legs = run_surrogate_legs(root / "dense", dev, leg_epochs)
+    zero_kernel_launches()
+    grid = run_stage3_grid(root / "dense", dev)
+    grid["k1_k4_launches"] = linear_kernel_launches()
     shutil.rmtree(root, ignore_errors=True)
-    return res, legs
+    return res, legs, grid
 
 
 def lstm_timing(S3, dev, seed=SEED, eager_epochs=2, replays=10):
@@ -2038,10 +2085,11 @@ def run_surrogate_legs(workdir: Path, dev, epochs):
 # can take lies inside it and expfit takes its frozen-ramp fallback
 IRREGULAR_CELLS = (96, 8, 8)
 # tube_hybrid (savtpu's runs/tube_hybrid): tube 2x24x48 in 8 RCB parts;
-# 0.75 x 60,000 steps clears the load ramp (step 27,389 at dt 3.65e-5 s)
-# by 352 stored rows (the published depth is 100,000)
+# 0.75 x 45,000 steps clears the load ramp (step 27,389 at dt 3.65e-5 s)
+# by 127 stored rows, more than expfit's 64 at order 16 (the published
+# depth is 100,000; 60,000 until the serial-solver and steady slice)
 TUBE_CELLS = (2, 24, 48)
-TUBE_STEPS = 60_000
+TUBE_STEPS = 45_000
 # the tube of phase 2's grid check and phase 4's profile: 64 box parts
 TUBE_BIG = (4, 48, 256)
 
@@ -2362,14 +2410,17 @@ def check_mesh_io_and_route(root: Path):
 def run_irregular_path(root: Path, dev, mesh_path, steps):
     """Phase 3's irregular_96 through api.Simulation's stages. K3 must
     launch once per comm-free block and K1, K2, K4 never; the warm-up rows
-    must equal stage 1's bit for bit. Returns the readings (with
-    "failures") and the built problem for phase 4."""
+    must equal stage 1's bit for bit; stage 1's steady solve is read
+    against SciPy's direct one (``stage1_steady``). Returns the readings
+    (with "failures") and the built problem for phase 4."""
     cfg = irregular_config(root / "irregular_96", mesh_path, steps)
     zero_kernel_launches()
     sim, metrics, times = run_stages(cfg, dev)
     launches = linear_kernel_launches()
-    sp = sim.ctx.sp
+    sp, prob = sim.ctx.sp, sim.ctx.prob
     del sim
+    steady = stage1_steady(cfg, prob)
+    del prob
     ev = stage_events(cfg)
     blocks = -(-(steps - cfg.surrogate.i_cri - 1)
                // cfg.surrogate.block_size)
@@ -2382,9 +2433,11 @@ def run_irregular_path(root: Path, dev, mesh_path, steps):
         "band": {"P": P, "nc": nc, "Bk": Bk, "S3": int(sp.sld.shape[1])},
         **path_readings(cfg, metrics, times, steps, SAVE_EVERY),
         "k1_k4_launches": launches, "blocks": blocks,
+        "steady_solve": steady,
     }
     others = {k: v for k, v in launches.items() if k != "online_chunk"}
-    res["failures"] = path_failures(res, others) + [msg for bad, msg in (
+    res["failures"] = path_failures(res, others) + steady["failures"] + [
+        msg for bad, msg in (
         (sp.fint_mode != "banded", f"the problem is {sp.fint_mode!r}"),
         (ev["setup_breakdown"].get("partition_route") != "native",
          "the graph partition did not take the native refiner"),
@@ -2400,7 +2453,8 @@ def run_tube_path(root: Path, dev, steps, epochs):
     """Phase 3's tube_hybrid: the tube written to an ASCII .msh and read
     back, through api.Simulation's stages with the stacked hybrid. No
     path kernel may launch (dense, as in savtpu, where no Pallas kernel
-    lies on it); every rank's expfit base must fit past the load ramp."""
+    lies on it); every rank's expfit base must fit past the load ramp;
+    stage 1's steady solve is read against SciPy's direct one."""
     from savtpu_torch.mesh import tube_mesh, write_msh
 
     path = root / "tube.msh"
@@ -2409,8 +2463,10 @@ def run_tube_path(root: Path, dev, steps, epochs):
     zero_kernel_launches()
     sim, metrics, times = run_stages(cfg, dev)
     launches = linear_kernel_launches()
-    sp = sim.ctx.sp
+    sp, prob = sim.ctx.sp, sim.ctx.prob
     del sim
+    steady = stage1_steady(cfg, prob)
+    del prob
     ev = stage_events(cfg)
     s3 = ev["stage3_train_hybrid"]
     res = {
@@ -2426,9 +2482,10 @@ def run_tube_path(root: Path, dev, steps, epochs):
         "stage3_epochs_per_s": s3["epochs"] / s3["train_s"],
         "residual_over_signal_per_rank": s3["residual_rel"],
         "expfit_has_post_segment": s3["expfit_has_post_segment"],
-        "k1_k4_launches": launches,
+        "k1_k4_launches": launches, "steady_solve": steady,
     }
-    res["failures"] = path_failures(res, launches) + [msg for bad, msg in (
+    res["failures"] = path_failures(res, launches) + steady["failures"] + [
+        msg for bad, msg in (
         (sp.fint_mode != "dense", f"the problem is {sp.fint_mode!r}"),
         (not all(res["expfit_has_post_segment"]),
          "the hybrid's expfit base took its frozen-ramp fallback"),
@@ -3021,6 +3078,647 @@ def run_unramped_beam(root: Path, dev, steps=UNRAMPED_STEPS):
     return res
 
 
+# ---- the serial-solver and steady slice: the serial explicit runner
+# ---- (linear and Neo-Hookean), the steady routes, the steady-only P2
+# ---- path, the stage-3 grid, roofline, profiling and offload
+
+# serial_explicit_vs_sharded's depth on the default beam, and its limit
+# (savtpu's test_emulated_exchanged_matches_serial)
+SERIAL_STEPS = 2_000
+SERIAL_TOL = 1e-12
+# serial_nh_vs_sharded's depth at nh_box_96's layout, and its limit: the
+# Neo-Hookean stress is float64's eps over the strain from rest (PERF.md)
+NH_SERIAL_STEPS = 200
+NH_SERIAL_TOL = 1e-8
+# the dense steady route, card against CPU: two LU factorizations (cuSOLVER,
+# LAPACK) agree to the solve's forward error, eps * kappa(K), about 4e-12 on
+# the default beam; savtpu's own dense-against-sparse steady bound is 1e-10
+STEADY_DENSE_TOL = 1e-10
+# the two-level PCG's sizes: the slice's beam (23,571 DOFs: the coarse
+# space engages past 20,000), and the --pcg-big one (97,851 DOFs)
+PCG_CELLS = (96, 8, 8)
+PCG_BIG_CELLS = (192, 12, 12)
+# PCG's limits: its distance from SciPy's direct solution (savtpu's
+# tests/test_assembly_solvers.py bound), and its relative residual at
+# most twice the direct solve's own. savtpu's small-mesh 1e-9 does not
+# hold at these sizes for any float64 solve: the floor eps * kappa(K)
+# grows with the mesh, and SciPy's direct solve itself reads 1.9e-9 at
+# 96x8x8 and 1.8e-8 at 192x12x12 (both residuals are printed)
+PCG_VS_DIRECT = 1e-7
+PCG_RESIDUAL_VS_DIRECT = 2.0
+# the steady-only P2 beam: 48x4x4 promotes to 97 x 9 x 9 nodes (23,571
+# DOFs, PCG's route), and its limits
+P2_CELLS = (48, 4, 4)
+P2_TOL = 1e-8
+# stage 3's grid on the default run's artifacts: two learning rates,
+# each at this many epochs
+GRID_EPOCHS = 10
+# savtpu's refusal of the dynamic path at deg = 2, with the port's name
+P2_REFUSAL = (
+    "the distributed dynamic pipeline is P1-only; deg=2 is steady-only, "
+    "like the reference (Data_prepare.py:42) — use "
+    "savtpu_torch.pipeline.data_prepare.run or api.Simulation.steady()")
+
+
+def serial_run(prob, op, steps, save_every=1):
+    """``run_explicit`` over the operator ``op`` from the problem's
+    (d0, d_{-1}) at t = 0, on the operator's device."""
+    from savtpu_torch.solvers import make_step_fn, run_explicit
+
+    step = make_step_fn(op, prob.F_pre, prob.lumped_M, prob.mask,
+                        prob.alpha, prob.dt)
+    return run_explicit(step, prob.d0, prob.dn, 0.0, prob.dt, steps,
+                        save_every=save_every)[0]
+
+
+def globalized(sp, traj, ndof):
+    """(P, T, DL) exchanged trajectory -> (T, ndof) float64 numpy by
+    global DOF (owners agree in an exchanged run)."""
+    import numpy as np
+
+    t = traj.detach().cpu().double().numpy()
+    out = np.zeros((t.shape[1], ndof))
+    dm = sp.dof_mask.cpu().numpy()
+    for p in range(sp.n_parts):
+        n = int(dm[p].sum())
+        out[:, sp.local_dofs_global[p, :n]] = t[p, :, :n]
+    return out
+
+
+def row_rel(a, b):
+    """max over the rows of b that are not zero of ||a - b|| / ||b||."""
+    import numpy as np
+
+    a, b = (np.asarray(t.detach().cpu() if hasattr(t, "detach") else t,
+                       dtype=np.float64) for t in (a, b))
+    nb = np.linalg.norm(b, axis=1)
+    keep = nb > 0
+    return float((np.linalg.norm(a - b, axis=1)[keep] / nb[keep]).max())
+
+
+def default_sharded(dev, cfg=None):
+    """The default Config()'s problem (25x1x1 beam, 2 RCB parts, float64)
+    and its ShardedProblem, built as build_context builds it, on
+    ``dev``."""
+    from savtpu_torch.config import Config
+    from savtpu_torch.mesh import dirichlet_nodes
+    from savtpu_torch.parallel import (
+        ShardedProblem,
+        build_partition_maps,
+        partition_elements,
+    )
+    from savtpu_torch.solvers import setup_problem
+
+    cfg = cfg or Config()
+    prob = setup_problem(cfg)
+    m = prob.mesh
+    ep = partition_elements(m.tetra, m.points, cfg.partition.n_parts,
+                            method=cfg.partition.method)
+    maps = build_partition_maps(m.tetra, ep, m.num_points,
+                                dirichlet_nodes(m.triangles, m.points))
+    return prob, ShardedProblem.build(prob, maps,
+                                      fint_mode=cfg.solver.fint_mode,
+                                      device=dev)
+
+
+def check_serial_vs_sharded(dev):
+    """The serial explicit runner over FIntOperator dense, ebe and bcoo on
+    the card against the same run on the CPU, then the card's 2-part
+    exchanged ShardedSolver.run, globalized, against the card's serial
+    dense run, on the default beam over SERIAL_STEPS steps, float64,
+    limit 1e-12 (of the max and in norm row by row); "auto" resolving as
+    savtpu's does (dense up to dense_cutoff DOFs, else ebe). The control,
+    the serial operator with its first element's K_e zeroed, must be
+    rejected."""
+    import torch
+
+    from savtpu_torch.ops.assembly import FIntOperator
+    from savtpu_torch.parallel import ShardedSolver
+
+    prob, sp = default_sharded(dev)
+    res = {"steps": SERIAL_STEPS, "ndof": prob.ndof, "n_parts": sp.n_parts,
+           "fint_mode": sp.fint_mode, "limit": SERIAL_TOL}
+    Ke_card = prob.Ke.to(dev)
+    serial = {}
+    for mode in ("dense", "ebe", "bcoo"):
+        t0 = time.perf_counter()
+        card = serial_run(prob, FIntOperator(Ke_card, prob.edofs, prob.ndof,
+                                             mode=mode), SERIAL_STEPS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cpu = serial_run(prob, FIntOperator(prob.Ke, prob.edofs, prob.ndof,
+                                            mode=mode), SERIAL_STEPS)
+        t2 = time.perf_counter()
+        serial[mode] = card
+        res[f"serial_{mode}"] = {
+            "device": str(card.device), "max_rel": rel_max(card, cpu),
+            "card_s": round(t1 - t0, 3), "cpu_s": round(t2 - t1, 3)}
+    res["auto_mode"] = FIntOperator(Ke_card, prob.edofs, prob.ndof).mode
+    res["auto_mode_cutoff_below_ndof"] = FIntOperator(
+        Ke_card, prob.edofs, prob.ndof, dense_cutoff=prob.ndof - 1).mode
+    t0 = time.perf_counter()
+    (traj, _), _ = ShardedSolver(sp).run(
+        sp.localize(prob.d0), sp.localize(prob.dn), 0.0, SERIAL_STEPS,
+        sync=True, record="traj")
+    torch.cuda.synchronize()
+    res["sharded_s"] = round(time.perf_counter() - t0, 3)
+    g = globalized(sp, traj, prob.ndof)
+    ref = serial["dense"]
+    Ke_ctl = Ke_card.clone()
+    Ke_ctl[0] = 0.0
+    ctl = serial_run(prob, FIntOperator(Ke_ctl, prob.edofs, prob.ndof,
+                                        mode="dense"), SERIAL_STEPS)
+    res.update(sharded_vs_serial_max_rel=rel_max(g, ref),
+               sharded_vs_serial_row_rel=row_rel(g, ref),
+               max_abs=float(ref.abs().max()),
+               control_max_rel=rel_max(g, ctl))
+    res["failures"] = [msg for bad, msg in (
+        *((not res[f"serial_{m}"]["max_rel"] <= SERIAL_TOL,
+           f"the serial {m} run on the card departs from the CPU's")
+          for m in ("dense", "ebe", "bcoo")),
+        (any(res[f"serial_{m}"]["device"] == "cpu"
+             for m in ("dense", "ebe", "bcoo")),
+         "a serial run did not run on the card"),
+        ((res["auto_mode"], res["auto_mode_cutoff_below_ndof"])
+         != ("dense", "ebe"), "auto resolves unlike savtpu's"),
+        (not res["sharded_vs_serial_max_rel"] <= SERIAL_TOL,
+         "the exchanged run departs from the serial one"),
+        (not res["sharded_vs_serial_row_rel"] <= SERIAL_TOL,
+         "the exchanged run departs from the serial one (row norms)"),
+        (not res["max_abs"] > 0.0, "the serial run does not move"),
+        (not res["control_max_rel"] > SERIAL_TOL,
+         "the check does not reject a zeroed element"),
+    ) if bad]
+    return res
+
+
+def check_serial_nh_vs_sharded(dev):
+    """NeoHookeanFIntOperator + run_explicit on the card against the
+    sharded Neo-Hookean run at nh_box_96's layout (96x8x8, 16 box parts,
+    the stencil, the grid exchange), exchanged, float64, over
+    NH_SERIAL_STEPS steps from rest, limit NH_SERIAL_TOL of the max. The
+    control, the serial operator without its first element, must be
+    rejected."""
+    import torch
+
+    from savtpu_torch.ops.material import NeoHookean
+    from savtpu_torch.parallel import ShardedProblem, ShardedSolver
+    from savtpu_torch.solvers import NeoHookeanFIntOperator
+
+    prob, maps, _ = box_setup((96, 8, 8), 16)
+    mat = NeoHookean.from_engineering(**NH_MAT)
+    sp = ShardedProblem.build(prob, maps, material=mat,
+                              exchange_mode="grid", device=dev)
+    t0 = time.perf_counter()
+    (traj, _), _ = ShardedSolver(sp).run(
+        sp.localize(prob.d0), sp.localize(prob.dn), 0.0, NH_SERIAL_STEPS,
+        sync=True, record="traj")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    coords = prob.coords.to(dev)
+    ref = serial_run(prob, NeoHookeanFIntOperator(
+        mat, coords, prob.edofs, prob.ndof), NH_SERIAL_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # the first element (at the clamp, where the run strains first)
+    ctl = serial_run(prob, NeoHookeanFIntOperator(
+        mat, coords[1:], prob.edofs[1:], prob.ndof), NH_SERIAL_STEPS)
+    g = globalized(sp, traj, prob.ndof)
+    res = {"steps": NH_SERIAL_STEPS, "ndof": prob.ndof,
+           "elements": len(prob.edofs), "n_parts": sp.n_parts,
+           "fint_mode": sp.fint_mode,
+           "nh_stencil_dims": list(sp.nhs_dims or ()),
+           "exchange_mode": sp.exchange_mode, "limit": NH_SERIAL_TOL,
+           "serial_device": str(ref.device),
+           "max_rel": rel_max(g, ref), "max_abs": float(ref.abs().max()),
+           "control_max_rel": rel_max(g, ctl),
+           "sharded_s": round(t1 - t0, 3), "serial_s": round(t2 - t1, 3)}
+    res["failures"] = [msg for bad, msg in (
+        (res["fint_mode"] != "nh" or not res["nh_stencil_dims"],
+         "the sharded run is not on the Neo-Hookean stencil"),
+        (res["serial_device"] == "cpu", "the serial run is on the CPU"),
+        (not res["max_rel"] <= NH_SERIAL_TOL,
+         "the sharded Neo-Hookean run departs from the serial one"),
+        (not res["max_abs"] > 0.0, "the serial run does not move"),
+        (not res["control_max_rel"] > NH_SERIAL_TOL,
+         "the check does not reject a dropped element"),
+    ) if bad]
+    return res
+
+
+def beam_problem(cells, deg=1):
+    """A float64 beam of ``cells`` (length nx/ny, as the sweep's)."""
+    from savtpu_torch.config import Config
+    from savtpu_torch.solvers import setup_problem
+
+    cfg = Config()
+    cfg.beam_cells = cells
+    cfg.beam_extent = (cells[0] / cells[1], 1.0, 1.0)
+    cfg.solver.deg = deg
+    return setup_problem(cfg)
+
+
+def steady_pcg_vs_direct(prob, dev, control=False):
+    """steady_displacement of ``prob`` (past 6,000 DOFs: host PCG) against
+    SciPy's sparse direct solve of the same system: seconds, iterations,
+    both relative residuals and their distance; with ``control`` also a
+    PCG stopped at an eighth of its iterations."""
+    import dataclasses
+
+    import numpy as np
+
+    from savtpu_torch.ops.element import batch_element_mkf
+    from savtpu_torch.solvers import steady_displacement
+    from savtpu_torch.solvers import steady as st
+
+    info = {}
+    t0 = time.perf_counter()
+    d = steady_displacement(prob, device=dev, info=info)
+    pcg_s = time.perf_counter() - t0
+    mat = dataclasses.replace(prob.material, ramped=False)
+    Ke = prob.Ke.numpy()
+    Fe = batch_element_mkf(prob.deg, prob.n_quad, mat, 0.0,
+                           prob.coords)[2].numpy()
+    args = (Ke, Fe, prob.edofs, prob.ndof, prob.dirichlet_dofs)
+    t0 = time.perf_counter()
+    x = st._steady_solve_sparse_host(*args)
+    direct_s = time.perf_counter() - t0
+    K, F, _ = st._dirichlet_system(*args)
+    nF = np.linalg.norm(F)
+    res = {"ndof": prob.ndof, "route": info["route"],
+           "pcg_s": round(pcg_s, 3), "pcg_setup_s": info.get("setup_s"),
+           "pcg_iterations": info.get("iterations"),
+           "coarse_cells": info.get("coarse_cells"),
+           "pcg_rel_residual": info.get("rel_residual"),
+           "direct_s": round(direct_s, 3),
+           "direct_rel_residual": float(np.linalg.norm(F - K @ x) / nF),
+           "pcg_vs_direct": float(np.linalg.norm(d - x) / np.linalg.norm(x))}
+    if control:
+        xc, _ = st._steady_solve_pcg(
+            *args, points=prob.mesh.points,
+            maxiter=max(1, info["iterations"] // 8))
+        res["control_vs_direct"] = float(np.linalg.norm(xc - x)
+                                         / np.linalg.norm(x))
+    return res
+
+
+def check_steady_routes(dev):
+    """The steady routes: the dense route on the default beam (312 DOFs,
+    torch.linalg.solve on the card) against the CPU (STEADY_DENSE_TOL);
+    two-level PCG at PCG_CELLS (23,571 DOFs, the coarse space engaged)
+    against SciPy's direct solve (PCG_VS_DIRECT; residual at most
+    PCG_RESIDUAL_VS_DIRECT times the direct solve's),
+    both timed; ``eigen_modes`` on the default beam on the card against
+    the CPU (1e-10 of the largest). The control, PCG stopped at an eighth
+    of its iterations, must be rejected."""
+    import dataclasses
+
+    from savtpu_torch.config import Config
+    from savtpu_torch.ops.element import batch_element_mkf
+    from savtpu_torch.solvers import (
+        eigen_modes,
+        setup_problem,
+        steady_displacement,
+    )
+
+    prob = setup_problem(Config())
+    info = {}
+    card = steady_displacement(prob, device=dev, info=info)
+    cpu = steady_displacement(prob, device="cpu")
+    mat = dataclasses.replace(prob.material, ramped=False)
+    Me, Ke, _ = batch_element_mkf(prob.deg, prob.n_quad, mat, 0.0,
+                                  prob.coords)
+    ddofs = prob.dirichlet_dofs
+    f_card = eigen_modes(Me.to(dev), Ke.to(dev), prob.edofs, prob.ndof,
+                         ddofs)
+    f_cpu = eigen_modes(Me, Ke, prob.edofs, prob.ndof, ddofs)
+    res = {"dense": {"ndof": prob.ndof, "route": info["route"],
+                     "limit": STEADY_DENSE_TOL,
+                     "max_rel": rel_max(card, cpu),
+                     "max_abs": float(abs(cpu).max())},
+           "eigen_modes": {"limit": 1e-10, "device": str(f_card.device),
+                           "max_rel": rel_max(f_card, f_cpu),
+                           "zero_modes": int((f_cpu == 0).sum()),
+                           "first_hz": [float(f) for f in f_cpu[
+                               len(ddofs):len(ddofs) + 4]]},
+           "pcg": {"cells": list(PCG_CELLS), "limit_vs_direct":
+                   PCG_VS_DIRECT,
+                   "limit_residual_vs_direct": PCG_RESIDUAL_VS_DIRECT,
+                   **steady_pcg_vs_direct(beam_problem(PCG_CELLS), dev,
+                                          control=True)}}
+    pcg = res["pcg"]
+    res["failures"] = [msg for bad, msg in (
+        (res["dense"]["route"] != "dense", "the default beam is not dense"),
+        (not res["dense"]["max_rel"] <= STEADY_DENSE_TOL,
+         "the dense steady route on the card departs from the CPU's"),
+        (not res["dense"]["max_abs"] > 0.0, "the steady solution is zero"),
+        (res["eigen_modes"]["device"] == "cpu", "eigen_modes ran on the CPU"),
+        (not res["eigen_modes"]["max_rel"] <= 1e-10,
+         "eigen_modes on the card depart from the CPU's"),
+        (res["eigen_modes"]["zero_modes"] != len(ddofs),
+         "a constrained DOF is not a zero mode"),
+        (pcg["route"] != "pcg" or pcg["coarse_cells"] is None,
+         "the 96x8x8 solve did not take two-level PCG"),
+        (not pcg["pcg_rel_residual"]
+         <= PCG_RESIDUAL_VS_DIRECT * pcg["direct_rel_residual"],
+         "PCG's residual is above its limit"),
+        (not pcg["pcg_vs_direct"] <= PCG_VS_DIRECT,
+         "PCG departs from the direct solve"),
+        (not pcg["control_vs_direct"] > PCG_VS_DIRECT,
+         "the check does not reject a PCG stopped early"),
+    ) if bad]
+    return res
+
+
+def check_steady_big(dev):
+    """--pcg-big: two-level PCG at PCG_BIG_CELLS (97,851 DOFs) against
+    SciPy's direct solve, both timed (same limits as steady_routes)."""
+    res = {"cells": list(PCG_BIG_CELLS),
+           **steady_pcg_vs_direct(beam_problem(PCG_BIG_CELLS), dev)}
+    res["failures"] = [msg for bad, msg in (
+        (res["route"] != "pcg", "the solve did not take PCG"),
+        (not res["pcg_rel_residual"]
+         <= PCG_RESIDUAL_VS_DIRECT * res["direct_rel_residual"],
+         "PCG's residual is above its limit"),
+        (not res["pcg_vs_direct"] <= PCG_VS_DIRECT,
+         "PCG departs from the direct solve"),
+    ) if bad]
+    return res
+
+
+def vtk_displacement(path):
+    """The (3 * points,) displacement of a steady VTK written by
+    ``data_prepare`` (its three SCALARS fields)."""
+    import numpy as np
+
+    lines = Path(path).read_text().splitlines()
+    n = int(next(ln for ln in lines if ln.startswith("POINT_DATA")).split()[1])
+    out = {}
+    for i, ln in enumerate(lines):
+        if ln.startswith("SCALARS displacement-"):
+            out[ln.split()[1][-1]] = np.array(lines[i + 2 : i + 2 + n],
+                                              dtype=np.float64)
+    return np.stack([out["x"], out["y"], out["z"]], axis=1).reshape(-1)
+
+
+def stage1_steady(cfg, prob):
+    """A path's stage-1 steady solve, as its ``steady_solve`` event
+    records it (route, PCG iterations and residual, the solve's seconds
+    with the VTK write), against SciPy's sparse direct solve of the same
+    system (PCG's fallback): its seconds, and the relative distance of
+    the steady VTK's displacement from it. A route other than PCG, or a
+    distance above PCG_VS_DIRECT, fails the path."""
+    import dataclasses
+
+    import numpy as np
+
+    from savtpu_torch.io.artifacts import ArtifactStore
+    from savtpu_torch.ops.element import batch_element_mkf
+    from savtpu_torch.solvers import steady as st
+
+    ev = stage_events(cfg)["steady_solve"]
+    mat = dataclasses.replace(prob.material, ramped=False)
+    Fe = batch_element_mkf(prob.deg, prob.n_quad, mat, 0.0,
+                           prob.coords.cpu())[2].numpy()
+    t0 = time.perf_counter()
+    x = st._steady_solve_sparse_host(prob.Ke.cpu().numpy(), Fe, prob.edofs,
+                                     prob.ndof, prob.dirichlet_dofs)
+    direct_s = time.perf_counter() - t0
+    store = ArtifactStore(cfg.workdir, cfg.model_dir,
+                          cfg.surrogate.run_tag())
+    d = vtk_displacement(store.steady_vtk())
+    res = {**{k: ev.get(k) for k in ("ndof", "route", "iterations",
+                                     "rel_residual", "coarse_cells",
+                                     "setup_s", "seconds")},
+           "direct_s": round(direct_s, 3),
+           "vs_direct": float(np.linalg.norm(d - x) / np.linalg.norm(x))}
+    res["failures"] = [msg for bad, msg in (
+        (res["route"] != "pcg", f"the steady solve took {res['route']}"),
+        (not res["vs_direct"] <= PCG_VS_DIRECT,
+         "the steady VTK departs from the direct solve"),
+    ) if bad]
+    return res
+
+
+def run_p2_steady(root: Path, dev):
+    """The steady-only P2 path through the stage-1 command line: a
+    P2_CELLS beam at ``solver.deg = 2`` (23,571 DOFs, PCG), on the card
+    and again with ``--device cpu``: the VTK written, the displacements
+    within P2_TOL, the tip deflection within 30% of Euler-Bernoulli (as
+    savtpu's tests/test_pipeline.py checks), and build_context refusing
+    deg = 2 with savtpu's message."""
+    import numpy as np
+
+    from savtpu_torch.config import Config
+    from savtpu_torch.mesh import read_vtk
+    from savtpu_torch.pipeline import data_prepare
+    from savtpu_torch.pipeline.common import build_context
+
+    out, secs = {}, {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        cfg = Config()
+        cfg.workdir = str(root / tag / "Results")
+        cfg.model_dir = str(root / tag / "Distributed_save")
+        cfg.beam_cells = P2_CELLS
+        cfg.beam_extent = (P2_CELLS[0] / P2_CELLS[1], 1.0, 1.0)
+        cfg.solver.deg = 2
+        path = root / f"{tag}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        cfg.to_json(str(path))
+        t0 = time.perf_counter()
+        data_prepare.main(["--config", str(path), *extra])
+        secs[tag] = round(time.perf_counter() - t0, 3)
+        vtk = Path(cfg.workdir) / "Static" / "steady_distributed.vtk"
+        out[tag] = (cfg, vtk_displacement(vtk), read_vtk(vtk),
+                    stage_events(cfg)["steady_solve"])
+    cfg, d, mesh, ev = out["card"]
+    d_cpu = out["cpu"][1]
+    L = P2_CELLS[0] / P2_CELLS[1]
+    tip = int(np.argmax(mesh.points[:, 0]))
+    eb = 0.5 * L**4 / (8 * 1e6 / 12.0)
+    try:
+        build_context(cfg, device=dev)
+        refusal = None
+    except NotImplementedError as e:
+        refusal = str(e)
+    res = {"cells": list(P2_CELLS), "ndof": 3 * mesh.num_points,
+           "tetra10": len(mesh.cells.get("tetra10", ())),
+           "route": ev["route"], "pcg_iterations": ev.get("iterations"),
+           "pcg_rel_residual": ev.get("rel_residual"),
+           "card_s": secs["card"], "cpu_s": secs["cpu"],
+           "steady_solve_s": ev["seconds"],
+           "limit": P2_TOL, "max_rel": rel_max(d, d_cpu),
+           "tip_deflection": float(d[3 * tip + 1]),
+           "euler_bernoulli": -eb,
+           "tip_vs_euler_bernoulli": abs(d[3 * tip + 1] + eb) / eb,
+           "refusal": refusal}
+    res["failures"] = [msg for bad, msg in (
+        (res["ndof"] != 23_571 or not res["tetra10"],
+         "the VTK does not hold the P2 mesh"),
+        (res["route"] != "pcg", "the P2 solve did not take PCG"),
+        (not res["max_rel"] <= P2_TOL,
+         "the card's P2 run departs from the CPU's"),
+        (not np.isfinite(d).all(), "non-finite displacement"),
+        (not res["tip_vs_euler_bernoulli"] < 0.3,
+         "the tip deflection is off Euler-Bernoulli by 30% or more"),
+        (refusal != P2_REFUSAL,
+         "build_context does not refuse deg = 2 with savtpu's message"),
+    ) if bad]
+    return res
+
+
+def run_stage3_grid(workdir: Path, dev, epochs=GRID_EPOCHS):
+    """Stage 3's grid through its command line on the default run's stage
+    1-2 artifacts in ``workdir``: ``--grid-lrs`` of two learning rates
+    (twice and four times the default's, so no run-tag directory of the
+    default run is overwritten) at ``epochs`` epochs. Each combination's
+    run-tag directory must hold every rank's model.npz with a finite
+    final training loss."""
+    from savtpu_torch.io.artifacts import ArtifactStore, load_params_meta
+    from savtpu_torch.pipeline import model_training
+
+    cfg = lstm_config(workdir, epochs)
+    path = workdir / "grid.json"
+    cfg.to_json(str(path))
+    lr = cfg.surrogate.learning_rate
+    lrs = (2 * lr, 4 * lr)
+    t0 = time.perf_counter()
+    model_training.main(["--config", str(path), "--epochs", str(epochs),
+                         "--grid-lrs", *(repr(v) for v in lrs)])
+    seconds = time.perf_counter() - t0
+    runs = {}
+    for v in lrs:
+        cfg.surrogate.learning_rate = v
+        store = ArtifactStore(cfg.workdir, cfg.model_dir,
+                              cfg.surrogate.run_tag())
+        losses = [load_params_meta(store.model_file(r))["final_train_loss"]
+                  if store.model_file(r).exists() else None
+                  for r in range(cfg.partition.n_parts)]
+        runs[cfg.surrogate.run_tag()] = losses
+    res = {"epochs": epochs, "learning_rates": list(lrs),
+           "seconds": round(seconds, 3), "run_tags": runs}
+    res["failures"] = [msg for bad, msg in (
+        (len(runs) != 2, "the grid did not give two run tags"),
+        (any(x is None or not math.isfinite(float(x))
+             for losses in runs.values() for x in losses),
+         "a combination lacks a model or has a non-finite loss"),
+    ) if bad]
+    return res
+
+
+def check_roofline_profile_offload(sp_slice, sweep_rows, sweep_sps, dev,
+                                   root: Path, traj_rows):
+    """Phase 4's utilities: ``roofline`` of the slice's exchanged stepper
+    (1,000 replayed steps with record "none", after a warm-up) and of the
+    sweep's K1 rows (exchanged) and K4 rows (comm-free) from their
+    measured steps/s and ``bytes_floor_per_step`` (for K4 with its band
+    plan: the Kd rows it keeps in shared memory are read once a run); no
+    share may pass 100%. ``profile_trace`` around 100 replayed slice
+    steps, whose Chrome trace must name the step's kernels;
+    ``fetch_into`` against one direct ``copy_`` into the host array and
+    a bulk ``.cpu()``, at the slice's trajectory (P x traj_rows x DL
+    float32) and at its full depth (100,000 steps, save_every 50: P x
+    2,000 x DL), GB/s each, best of 3 in turns, the copies equal bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from savtpu_torch.ops.band_plan import BandPlan
+    from savtpu_torch.utils import profile_trace
+    from savtpu_torch.utils.offload import fetch_into
+    from savtpu_torch.utils.roofline import (
+        bytes_floor_per_step,
+        flops_model,
+        roofline,
+    )
+
+    def line(sp, sps, plan=None):
+        counted = bytes_floor_per_step(sp, plan)
+        b = counted["bytes_per_step_floor"]
+        f = flops_model(sp)["flops_per_step"]
+        r = roofline(sps, bytes_per_step=b, flops_per_step=f, device=dev)
+        out = {"steps_per_s": sps, "bytes_per_step_floor": b,
+               "flops_per_step": f,
+               **{k: r[k] for k in ("achieved_GBps", "pct_hbm_peak",
+                                    "pct_fp32_peak",
+                                    "pct_tensor_bf16_peak")}}
+        if plan is not None:
+            out.update(plan=vars(plan), resident_operator_bytes=counted[
+                "resident_operator_bytes"], bytes_per_step_reread=(
+                    bytes_floor_per_step(sp)["bytes_per_step_floor"]))
+        return out
+
+    sp = sp_slice
+    d0 = torch.zeros((sp.n_parts, sp.DL), dtype=sp.dtype, device=dev)
+    steps = 1000
+    sp.stacked_run(d0, d0, 0.0, steps, sync=True, record="none")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp.stacked_run(d0, d0, 0.0, steps, sync=True, record="none")
+    torch.cuda.synchronize()
+    res = {"slice_exchanged": {"fint_mode": sp.fint_mode, **line(
+        sp, steps / (time.perf_counter() - t0))}}
+    for row, sp_k in zip(sweep_rows, sweep_sps):
+        key = "exchanged" if sp_k.fint_mode == "pallas" else "sync_avoiding"
+        tag = (f"sweep_{row['mesh']}_p{row['n_parts']}_{row['fint_mode']}_"
+               f"{key}")
+        plan = (None if sp_k.fint_mode != "banded" else
+                BandPlan(**planned_band("banded_scan", sp_k.band_Kd)))
+        res[tag] = line(sp_k, row[f"{key}_steps_per_sec"], plan)
+    with profile_trace(root / "trace") as prof:
+        sp.stacked_run(d0, d0, 0.0, 100, sync=True, record="none")
+        torch.cuda.synchronize()
+    events = json.loads(Path(prof.trace_path).read_text())["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    res["profile_trace"] = {
+        "steps": 100, "trace_bytes": Path(prof.trace_path).stat().st_size,
+        "kernel_events": sum(kernels.values()),
+        "kernel_names": len(kernels),
+        "top_kernels": {k[:60]: n for k, n in top}}
+    res["offload"] = {}
+    for tag, rows in (("slice", traj_rows), ("full_depth", 2000)):
+        src = torch.randn((sp.n_parts, rows, sp.DL), dtype=torch.float32,
+                          device=dev)
+        nbytes = src.numel() * src.element_size()
+        dst = {k: np.empty(tuple(src.shape), np.float32)
+               for k in ("fetch_into", "copy", "bulk_cpu")}
+        ways = {"fetch_into": lambda: fetch_into(dst["fetch_into"], src),
+                "copy": lambda: torch.from_numpy(dst["copy"]).copy_(src),
+                "bulk_cpu": lambda: dst["bulk_cpu"].__setitem__(
+                    Ellipsis, src.cpu().numpy())}
+        t = {k: [] for k in ways}
+        for _ in range(3):
+            for k, fn in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                t[k].append(time.perf_counter() - t0)
+        want = src.cpu().numpy()
+        res["offload"][tag] = {
+            "shape": list(src.shape), "bytes": nbytes,
+            **{f"{k}_GBps": nbytes / min(v) / 1e9 for k, v in t.items()},
+            "equal": all(np.array_equal(a, want) for a in dst.values())}
+        del src, dst, want
+    res["failures"] = [msg for bad, msg in (
+        (not all("pct_hbm_peak" in v for k, v in res.items()
+                 if k.startswith(("slice", "sweep"))),
+         "no peaks for this card"),
+        (res["profile_trace"]["kernel_events"] < 100,
+         "the trace does not name the step's kernels"),
+        (not all(v["equal"] for v in res["offload"].values()),
+         "fetch_into copies unlike .cpu()"),
+        (any(v.get("pct_hbm_peak", 0.0) > 100.0 for k, v in res.items()
+             if k.startswith(("slice", "sweep"))),
+         "a share of the HBM peak above 100%: the count misses on-chip "
+         "reuse"),
+    ) if bad]
+    return res
+
+
 def run_stages(cfg, dev, first: int = 1):
     """The five stages (from stage ``first``) through api.Simulation,
     timed one by one."""
@@ -3070,6 +3768,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tube-steps", type=int, default=TUBE_STEPS,
                     help="tube_hybrid's depth in steps; 100000 is the "
                          "published depth")
+    ap.add_argument("--pcg-big", action="store_true",
+                    help="also solve the 192x12x12 beam's steady state "
+                         "(97,851 DOFs) by PCG and by SciPy's direct "
+                         "solver, timed (phase 2 steady_pcg_192x12x12)")
     ap.add_argument("--dtype", choices=("float32", "float64"),
                     default="float32",
                     help="the slice's state dtype in phase 3 (the "
@@ -3100,13 +3802,24 @@ def main(argv=None) -> int:
     clock = Clock()
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    from savtpu_torch.utils.roofline import device_peaks
+
+    peaks = device_peaks(dev)
+    if peaks is None:
+        print(f"chip_smoke: no peaks for {kind!r} in utils/roofline.py",
+              file=sys.stderr)
+        return 2
+    global PEAK_BYTES, PEAK_F32
+    PEAK_BYTES = peaks["hbm_GBps"] * 1e9
+    PEAK_F32 = peaks["fp32_tflops"] * 1e12
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     clock.phase(0, "device", kind=kind, count=count, nvidia_smi=smi,
-                torch=torch.__version__, cuda=torch.version.cuda)
+                torch=torch.__version__, cuda=torch.version.cuda,
+                peaks=peaks)
 
     built = kernels.build_all(["online_banded", "dense_step",
                                "banded_scan"])
@@ -3320,6 +4033,20 @@ def main(argv=None) -> int:
             if res["failures"]:
                 raise RuntimeError(f"{name}: {res['failures']}")
 
+        # the serial-solver and steady slice: the serial runner against
+        # the exchanged runs (linear, Neo-Hookean), the steady routes
+        checks_s = [("serial_explicit_vs_sharded", check_serial_vs_sharded),
+                    ("serial_nh_vs_sharded", check_serial_nh_vs_sharded),
+                    ("steady_routes", check_steady_routes)]
+        if opts.pcg_big:
+            checks_s.append(("steady_pcg_192x12x12", check_steady_big))
+        for name, check in checks_s:
+            res = check(dev)
+            torch.cuda.synchronize()
+            clock.phase(2, name, **res)
+            if res["failures"]:
+                raise RuntimeError(f"{name}: {res['failures']}")
+
         # ---- phase 3: the slice through the user's entry points ----
         cfg = slice_config(tmp / "slice", steps, opts.dtype)
         online_chunk.launches = 0
@@ -3410,6 +4137,13 @@ def main(argv=None) -> int:
             raise RuntimeError(f"unramped_beam: {unramped['failures']}")
         if any(unramped["k1_k4_launches"].values()):
             raise RuntimeError("unramped_beam launched a linear kernel")
+        # the steady-only P2 path through the stage-1 command line
+        zero_kernel_launches()
+        p2 = run_p2_steady(tmp / "p2", dev)
+        p2["k1_k4_launches"] = linear_kernel_launches()
+        clock.phase(3, "p2_steady", **p2)
+        if p2["failures"]:
+            raise RuntimeError(f"p2_steady: {p2['failures']}")
 
         # small run: stage 4 on the GPU (kernel) against the same stage on
         # the CPU (plain version), from the same stage 1-3 artifacts
@@ -3487,8 +4221,8 @@ def main(argv=None) -> int:
         # the default Config(): the LSTM-fed run at 100,000 steps, the
         # training cut to --lstm-epochs epochs; then its stage 4 on K1;
         # then the linear, ensemble and per-rank legs on its artifacts
-        lstm_path, legs = run_lstm_path(tmp / "lstm", dev, opts.lstm_epochs,
-                                        opts.leg_epochs)
+        lstm_path, legs, grid = run_lstm_path(
+            tmp / "lstm", dev, opts.lstm_epochs, opts.leg_epochs)
         clock.phase(3, "lstm_default_config", **lstm_path)
         if lstm_path["failures"]:
             raise RuntimeError(f"LSTM path: {lstm_path['failures']}")
@@ -3498,6 +4232,9 @@ def main(argv=None) -> int:
                     if r["failures"]}
         if failures:
             raise RuntimeError(f"default-config legs: {failures}")
+        clock.phase(3, "stage3_grid", **grid)
+        if grid["failures"]:
+            raise RuntimeError(f"stage3_grid: {grid['failures']}")
         surrogate_launches = {
             "nh_box_96": nh_path["k1_k4_launches"],
             "nh_box_96_hybrid": nh_hybrid["k1_k4_launches"],
@@ -3566,6 +4303,13 @@ def main(argv=None) -> int:
                     irregular_96x8x8_p16=window_profiles(dev, irr))
         del irr
         clock.phase(4, "lstm_epoch_timing", **lstm_timing(S3, dev))
+        res = check_roofline_profile_offload(
+            ctx.sp, sweep_rows, [sweep_sp[k] for k in SWEEP_PATH], dev,
+            tmp, steps // SAVE_EVERY)
+        clock.phase(4, "roofline_profile_offload", **res)
+        if res["failures"]:
+            raise RuntimeError(f"roofline_profile_offload: "
+                               f"{res['failures']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -10,7 +10,7 @@
     metrics = sim.compare()  # stage 5 (rel-L2 metrics)
     # or: metrics = sim.run_all()
     sim.solver()             # the ShardedSolver (exchanged / comm-free runs)
-    sim.steady()             # the steady displacement (P1)
+    sim.steady()             # the steady displacement (P1, or P2 alone)
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ from .pipeline import (
     shared_extraction,
 )
 from .pipeline.common import StageContext, build_context
-from .solvers import steady_displacement
+from .solvers import setup_problem, steady_displacement
+from .utils import resolve_device
 
 
 class Simulation:
@@ -82,11 +83,10 @@ class Simulation:
         return self.ctx.solver
 
     def steady(self) -> np.ndarray:
-        """Steady displacement vector (K d = F with the clamped face), for
-        deg=1. The JAX package's steady-only deg=2 path is not ported
-        (ROADMAP A12c)."""
-        if self.cfg.solver.deg != 1:
-            raise NotImplementedError(
-                "the steady-only P2 path (solver.deg = 2) is not ported "
-                "yet (ROADMAP A12c)")
-        return np.asarray(steady_displacement(self.ctx.prob))
+        """Steady displacement vector (K d = F with the clamped face).
+        Supports deg=1 and the steady-only deg=2 path (which has no
+        sharded context); the dense route solves on the run's device."""
+        if self.cfg.solver.deg == 2:
+            return steady_displacement(setup_problem(self.cfg),
+                                       device=resolve_device(self._device))
+        return steady_displacement(self.ctx.prob, device=self.ctx.device)

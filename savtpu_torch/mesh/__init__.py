@@ -1,7 +1,7 @@
 from .vtk_io import Mesh, read_vtk, write_vtk
 from .vtu_io import read_vtu, write_vtu
 from .msh_io import read_mesh, read_msh, write_msh
-from .generator import beam_mesh, irregular_beam_mesh, tube_mesh
+from .generator import beam_mesh, irregular_beam_mesh, to_p2, tube_mesh
 from .geometry import cfl_dt, dirichlet_nodes, min_mesh_size, node_to_dof
 
 __all__ = [
@@ -16,6 +16,7 @@ __all__ = [
     "beam_mesh",
     "tube_mesh",
     "irregular_beam_mesh",
+    "to_p2",
     "cfl_dt",
     "dirichlet_nodes",
     "min_mesh_size",

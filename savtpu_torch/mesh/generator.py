@@ -1,6 +1,6 @@
 """Tetrahedral mesh generators (NumPy copy of ``savtpu/mesh/generator.py``:
-``beam_mesh``, ``tube_mesh``, ``irregular_beam_mesh`` and the
-boundary-facet scan).
+``beam_mesh``, ``tube_mesh``, ``irregular_beam_mesh``, the boundary-facet
+scan and ``to_p2``).
 
 Refined cantilever beams and annular tubes (6 Kuhn tets per hex cell) and
 irregular Delaunay beams, each with its boundary triangles, so the
@@ -217,3 +217,35 @@ def _boundary_triangles(tets: np.ndarray) -> np.ndarray:
         key, axis=0, return_index=True, return_counts=True
     )
     return faces[idx[counts == 1]].astype(np.int32)
+
+
+# P2 edge order: the midpoint of edge k is local node 4 + k
+_P2_EDGES = np.array([(0, 1), (1, 2), (0, 2), (0, 3), (1, 3), (2, 3)])
+
+
+def to_p2(mesh: Mesh) -> Mesh:
+    """Promote a P1 tet mesh to P2 (10-node tets) by inserting edge
+    midpoints. Per element: the 4 vertices, then the midpoints of edges
+    (0,1), (1,2), (0,2), (0,3), (1,3), (2,3) (the basis order of
+    ``ops.shape.shape_function(2, .)`` and gmsh's tet10). Midpoint nodes
+    are numbered from ``len(points)`` in the order their edge is first
+    met, element by element and edge by edge, as the JAX package does.
+    The boundary triangles stay the corner facets."""
+    tets = np.asarray(mesh.tetra, dtype=np.int64)
+    points = mesh.points
+    n0 = len(points)
+    a = tets[:, _P2_EDGES[:, 0]].reshape(-1)
+    b = tets[:, _P2_EDGES[:, 1]].reshape(-1)
+    key = np.minimum(a, b) * n0 + np.maximum(a, b)
+    _, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    rank = np.empty(len(first), dtype=np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(len(first))
+    order = np.sort(first)
+    mid_points = 0.5 * (points[a[order]] + points[b[order]])
+    tet10 = np.empty((len(tets), 10), dtype=np.int32)
+    tet10[:, :4] = tets
+    tet10[:, 4:] = (n0 + rank[inv.reshape(-1)]).reshape(len(tets), 6)
+    cells = {"tetra10": tet10}
+    if mesh.triangles is not None:
+        cells["triangle"] = mesh.triangles
+    return Mesh(points=np.vstack([points, mid_points]), cells=cells)

@@ -1,7 +1,8 @@
 """Assembly of element arrays into global vectors and operators (port of
 ``savtpu/ops/assembly.py``): element DOF maps, vector assembly, lumped
-mass, the Dirichlet mask and ``FIntOperator``, the global F_int(d) =
-K_nobc d that the unramped ghost step's CG uses."""
+mass (vector and diagonal forms), the Dirichlet mask and its dense-system
+form, and ``FIntOperator``, the global F_int(d) = K_nobc d that the serial
+explicit runner and the unramped ghost step's CG use."""
 
 from __future__ import annotations
 
@@ -42,6 +43,30 @@ def assemble_dense(Ke: torch.Tensor, edofs, ndof: int) -> torch.Tensor:
         (), dtype=Ke.dtype).numpy().dtype)
     np.add.at(K, (ed[:, :, None], ed[:, None, :]), Ke.cpu().numpy())
     return torch.as_tensor(K).to(Ke.device)
+
+
+def lumping(M: torch.Tensor) -> torch.Tensor:
+    """Row-sum lumping to a diagonal matrix (the pipeline uses the vector
+    form below)."""
+    return torch.diag(M.sum(dim=1))
+
+
+def lumping_to_vec(M: torch.Tensor) -> torch.Tensor:
+    """Row-sum lumping to a vector."""
+    return M.sum(dim=1)
+
+
+def apply_dirichlet_dense(K: torch.Tensor, F: torch.Tensor, dirichlet_dofs):
+    """Strong homogeneous Dirichlet on a dense system: the constrained
+    rows and columns zeroed, a unit diagonal there, the right-hand side
+    zeroed; on the tensors' device."""
+    d = torch.as_tensor(np.asarray(dirichlet_dofs), dtype=torch.int64,
+                        device=K.device)
+    keep = torch.ones((K.shape[0],), dtype=K.dtype, device=K.device)
+    keep[d] = 0.0
+    K = K * keep[:, None] * keep[None, :]
+    K[d, d] = 1.0
+    return K, F * keep
 
 
 def incident_lists(edofs, DL: int) -> np.ndarray:
@@ -92,8 +117,9 @@ class FIntOperator:
       gather in element order (``incident_lists``); the JAX package adds
       them with a segment sum, here no scatter-add (and no atomics on a
       card) runs;
-    - ``bcoo``: a ``torch.sparse_coo_tensor`` product, duplicates summed
-      at build;
+    - ``bcoo``: a sparse product: the element blocks' COO entries, their
+      duplicates summed on the host at build, stored as CSR (a row-wise
+      product, the same sums on a card and on the CPU);
     - ``auto``: dense up to ``dense_cutoff`` DOFs, else ebe.
 
     The tensors live on ``Ke``'s device."""
@@ -102,7 +128,7 @@ class FIntOperator:
                  mode: str = "auto", dense_cutoff: int = 6144):
         self.ndof = int(ndof)
         self.Ke = Ke
-        dev = Ke.device
+        self.device = dev = Ke.device
         self.edofs = torch.as_tensor(np.asarray(edofs),
                                      dtype=torch.int64).to(dev)
         if mode == "auto":
@@ -115,11 +141,13 @@ class FIntOperator:
             self._dense = assemble_dense(Ke, edofs, ndof)
         elif mode == "bcoo":
             E, nb3, _ = Ke.shape
-            rows = self.edofs[:, :, None].expand(E, nb3, nb3).reshape(-1)
-            cols = self.edofs[:, None, :].expand(E, nb3, nb3).reshape(-1)
+            ed = torch.as_tensor(np.asarray(edofs), dtype=torch.int64)
+            rows = ed[:, :, None].expand(E, nb3, nb3).reshape(-1)
+            cols = ed[:, None, :].expand(E, nb3, nb3).reshape(-1)
             self._bcoo = torch.sparse_coo_tensor(
-                torch.stack([rows, cols]), Ke.reshape(-1), (ndof, ndof),
-                check_invariants=False).coalesce()
+                torch.stack([rows, cols]), Ke.cpu().reshape(-1),
+                (ndof, ndof), check_invariants=False,
+            ).coalesce().to_sparse_csr().to(dev)
         else:
             # one "part" whose dummy slot (ndof) no element writes into
             ed = np.asarray(edofs, dtype=np.int64)[None]
@@ -131,7 +159,7 @@ class FIntOperator:
         if self.mode == "dense":
             return self._dense @ d
         if self.mode == "bcoo":
-            return torch.sparse.mm(self._bcoo, d[:, None])[:, 0]
+            return (self._bcoo @ d[:, None])[:, 0]
         fe = (self.Ke * d[self.edofs][:, None, :]).sum(-1).reshape(-1)
         flat = torch.cat([fe, fe.new_zeros(1)])
         return flat[self._slots].sum(-1)

@@ -1,5 +1,5 @@
 """Batched element kernels: per-element mass, stiffness and force (port
-of ``savtpu/ops/element.py`` for P1 tets).
+of ``savtpu/ops/element.py`` for P1 and P2 tets).
 
 The JAX package writes one element and ``vmap``s it; here the element
 axis is the leading batch dimension of every tensor. The integrals are
@@ -105,6 +105,33 @@ def batch_element_mkf(deg: int, n_quad: int, material, t: float,
         E, 3 * nb, 3 * nb
     )
     return M, K, F
+
+
+def batch_element_k(deg: int, n_quad: int, material,
+                    coords: torch.Tensor) -> torch.Tensor:
+    """Stiffness only over coords (E, nb, 3): (E, 3nb, 3nb)."""
+    nb = n_basis(deg)
+    dtype, device = coords.dtype, coords.device
+    nodes, weights = tet_quadrature(n_quad)
+    nodes = torch.as_tensor(nodes, dtype=dtype, device=device)
+    weights = torch.as_tensor(weights, dtype=dtype, device=device)
+    D = material.D(dtype, device)
+    E = coords.shape[0]
+    K = torch.zeros((E, 3 * nb, 3 * nb), dtype=dtype, device=device)
+    Pt = coords.transpose(1, 2)
+    for q in range(nodes.shape[0]):
+        dN = shape_derivative(deg, nodes[q])
+        J = Pt @ dN
+        detJ = det3(J)
+        B = strain_displacement(dN @ inv3(J, detJ))
+        K = K + (B.transpose(1, 2) @ D @ B) * detJ[:, None, None] * weights[q]
+    return K
+
+
+def element_k(deg: int, n_quad: int, material, P: torch.Tensor):
+    """Stiffness (3nb, 3nb) of one element with nodal coordinates P
+    (nb, 3)."""
+    return batch_element_k(deg, n_quad, material, P[None])[0]
 
 
 def neo_hookean_element_fint(material, P: torch.Tensor,

@@ -72,6 +72,7 @@ from ..ops.forces import (
 from ..ops.material import NeoHookean, linear_ramp
 from ..ops.online_banded import band_matvec, online_chunk
 from ..utils import resolve_device
+from ..utils.offload import fetch_into
 from . import stencil
 from .halo import (
     PartitionMaps,
@@ -504,7 +505,9 @@ class ShardedProblem:
             )
         if prob.deg != 1:
             raise NotImplementedError(
-                "the dynamic path is P1-only (P2: ROADMAP A12c)")
+                "the distributed dynamic path is P1-only; deg=2 is "
+                "steady-only, like the reference (Data_prepare.py:42)"
+            )
         if fint_mode == "auto":
             # dense for small local blocks, block-tridiagonal beyond
             DL_est = 3 * maps.max_local_nodes + 1
@@ -1581,11 +1584,12 @@ class ShardedSolver:
                 save_every=save_every,
             )
             if traj_h is not None:
-                traj_h[:, done // save_every : (done + n) // save_every] = (
-                    traj_c.cpu().numpy()
+                fetch_into(
+                    traj_h[:, done // save_every : (done + n) // save_every],
+                    traj_c,
                 )
             if shared_h is not None:
-                shared_h[:, done : done + n] = shared_c.cpu().numpy()
+                fetch_into(shared_h[:, done : done + n], shared_c)
             done += n
             n_dispatch += 1
         return (traj_h, shared_h), carry

@@ -90,7 +90,11 @@ def build_context(cfg: Config, mesh=None, dtype=None,
     full_precision_products()
     if cfg.solver.deg != 1:
         raise NotImplementedError(
-            "the dynamic pipeline is P1-only (P2: ROADMAP A12c)")
+            "the distributed dynamic pipeline is P1-only; deg=2 is "
+            "steady-only, like the reference (Data_prepare.py:42) — use "
+            "savtpu_torch.pipeline.data_prepare.run or "
+            "api.Simulation.steady()"
+        )
     tmarks = {}
     t0 = time.perf_counter()
 

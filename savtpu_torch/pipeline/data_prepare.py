@@ -1,7 +1,8 @@
 """Stage 1: the exchanged explicit solve that produces the training data
 (port of ``savtpu/pipeline/data_prepare.py``): partition labels, the
 steady solve written to VTK, and the full exchanged run saved as per-rank
-displacement histories.
+displacement histories. With ``solver.deg = 2`` (P2 tets) the stage is
+the JAX package's steady-only path: the steady VTK and no dynamic run.
 
     python -m savtpu_torch.pipeline.data_prepare [--config cfg.json]
         [--steps N] [--parts P] [--ckpt-every N] [--[no-]resume]
@@ -20,13 +21,12 @@ import argparse
 import shutil
 import time
 
-import numpy as np
-
 from ..config import Config
-from ..io.artifacts import save_displacement
+from ..io.artifacts import ArtifactStore, save_displacement
 from ..mesh import write_vtk
+from ..solvers.problem import setup_problem
 from ..solvers.steady import steady_displacement
-from ..utils import stage_log, synchronize
+from ..utils import resolve_device, stage_log, synchronize
 from ..utils.checkpoint import run_streamed_ckpt
 from .common import (
     StageContext,
@@ -36,15 +36,12 @@ from .common import (
 )
 
 
-def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
-        device=None, resume: bool = True):
-    if ctx is None:
-        ctx = build_context(cfg, device=device)
-    prob, sp, solver, store = ctx.prob, ctx.sp, ctx.solver, ctx.store
-
-    save_partition_labels(ctx)
-
-    d_steady = np.asarray(steady_displacement(prob))
+def write_steady(cfg: Config, prob, store: ArtifactStore, device) -> dict:
+    """The steady displacement under the unramped load, written to the
+    store's steady VTK; returns the solve's route record."""
+    info = {}
+    t0 = time.perf_counter()
+    d_steady = steady_displacement(prob, device=device, info=info)
     write_vtk(
         store.steady_vtk(),
         prob.mesh,
@@ -54,6 +51,33 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
             "displacement-z": d_steady[2::3],
         },
     )
+    info["seconds"] = round(time.perf_counter() - t0, 3)
+    stage_log(cfg).log("steady_solve", ndof=prob.ndof, deg=prob.deg,
+                       device=str(device), **info)
+    return info
+
+
+def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
+        device=None, resume: bool = True):
+    if cfg.solver.deg == 2:
+        # the steady-only P2 path: solve, write the steady VTK, no
+        # dynamic stage
+        dev = resolve_device(device)
+        prob = setup_problem(cfg)
+        store = ArtifactStore(cfg.workdir, cfg.model_dir,
+                              cfg.surrogate.run_tag())
+        info = write_steady(cfg, prob, store, dev)
+        if verbose:
+            print(f"[data_prepare] deg=2 steady-only solve ({prob.ndof} "
+                  f"DOFs, {info['route']}) -> {store.steady_vtk()}")
+        return prob
+
+    if ctx is None:
+        ctx = build_context(cfg, device=device)
+    prob, sp, solver, store = ctx.prob, ctx.sp, ctx.solver, ctx.store
+
+    save_partition_labels(ctx)
+    write_steady(cfg, prob, store, ctx.device)
 
     num_steps = cfg.solver.num_steps
     save_every = cfg.solver.save_every

@@ -21,16 +21,18 @@ training scaling constants (which stage 4 recomputes and checks) go to
 ``{model_dir}/Rank-<r>/<tag>/``, beside the training curves.
 
     python -m savtpu_torch.pipeline.model_training [--config cfg.json]
-        [--epochs N] [--device cpu]
+        [--epochs N] [--grid-batch-sizes B ...] [--grid-lrs LR ...]
+        [--grid-hidden H ...] [--device cpu]
 
-Runs on CUDA unless ``--device`` says otherwise. The JAX package's
-hyper-parameter grid (``--grid-*``, its ``run_grid``) is not ported
-(ROADMAP A12c).
+Runs on CUDA unless ``--device`` says otherwise. Any ``--grid-*`` flag
+runs :func:`run_grid`: every (n_B, eta0, n_H) combination trains into its
+own run-tag directory, the flags left out held at the config's values.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import time
 from pathlib import Path
@@ -618,17 +620,55 @@ def _run_hybrid(cfg: Config, store: ArtifactStore, n_parts: int,
     return results
 
 
+def run_grid(cfg: Config, batch_sizes, learning_rates, hidden_sizes,
+             verbose: bool = True, device=None):
+    """Hyper-parameter grid over (n_B, eta0, n_H), the reference's triple
+    loop: each combination trains into its own run-tag directory
+    (``config.run_tag``, e.g. 'nB-10-nH-50-Lr-0.0005-filter=150'), so
+    stage 4 picks any combination by setting the same surrogate fields.
+    Returns {(n_B, eta0, n_H): run's result}."""
+    results = {}
+    for nB in batch_sizes:
+        for lr in learning_rates:
+            for nH in hidden_sizes:
+                c = copy.deepcopy(cfg)
+                c.surrogate.batch_size = int(nB)
+                c.surrogate.learning_rate = float(lr)
+                c.surrogate.hidden_size = int(nH)
+                if verbose:
+                    print(f"[model_training] grid: {c.surrogate.run_tag()}")
+                results[(nB, lr, nH)] = run(c, verbose=verbose,
+                                            device=device)
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="savtpu_torch stage 3: model "
                                              "training")
     ap.add_argument("--config", type=str, default=None)
     ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--grid-batch-sizes", type=int, nargs="+", default=None,
+                    help="n_B grid (reference Model_training.py:19)")
+    ap.add_argument("--grid-lrs", type=float, nargs="+", default=None,
+                    help="eta0 grid (Model_training.py:20)")
+    ap.add_argument("--grid-hidden", type=int, nargs="+", default=None,
+                    help="n_H grid (Model_training.py:21)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
     cfg = Config.from_json(args.config) if args.config else Config()
     if args.epochs:
         cfg.surrogate.num_epochs = args.epochs
-    run(cfg, device=resolve_device(args.device))
+    device = resolve_device(args.device)
+    if args.grid_batch_sizes or args.grid_lrs or args.grid_hidden:
+        run_grid(
+            cfg,
+            args.grid_batch_sizes or [cfg.surrogate.batch_size],
+            args.grid_lrs or [cfg.surrogate.learning_rate],
+            args.grid_hidden or [cfg.surrogate.hidden_size],
+            device=device,
+        )
+        return
+    run(cfg, device=device)
 
 
 if __name__ == "__main__":

@@ -70,6 +70,7 @@ from ..models.modal import from_modal, to_modal
 from ..models.predictor import phase_interleaved_predict_stacked
 from ..utils import stage_log, synchronize
 from ..utils.checkpoint import TrajStore, restore_carry
+from ..utils.offload import fetch_into
 from .common import (
     StageContext,
     build_context,
@@ -563,10 +564,13 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     tprof = {"warmup_s": 0.0, "blocks_s": 0.0}
 
     def write_seg(arr):
+        # threaded leading-axis chunks straight into the destination (a
+        # memmap under checkpoints)
         nonlocal rec_off
-        a = arr.cpu().numpy() if torch.is_tensor(arr) else np.asarray(arr)
-        traj_full[:, rec_off : rec_off + a.shape[1]] = a
-        rec_off += a.shape[1]
+        if not torch.is_tensor(arr):
+            arr = np.asarray(arr)
+        fetch_into(traj_full[:, rec_off : rec_off + arr.shape[1]], arr)
+        rec_off += arr.shape[1]
 
     # one group's recorded blocks wait on the device until the next
     # ordered writer (the next group, a resync block, a checkpoint, the

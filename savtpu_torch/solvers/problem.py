@@ -3,7 +3,9 @@
 
 CFL dt, lumped mass, pre-assembled external force, Dirichlet DOFs and the
 ghost step (0 under a ramped load; the consistent-mass solve of
-``solvers/steady.py`` under an unramped one), as host tensors. Assembly
+``solvers/steady.py`` under an unramped one), as host tensors. P1, and
+the steady-only P2 path (``solver.deg = 2``: a P1 mesh is promoted by
+``mesh.to_p2``; the CFL dt comes from the corner tets). Assembly
 ALWAYS runs in float64 on the host and is then cast to the run dtype:
 assembling in float32 costs ~500x
 trajectory accuracy (element integrals, lumped mass and the ghost init all
@@ -19,7 +21,14 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..mesh import Mesh, beam_mesh, cfl_dt, dirichlet_nodes, read_mesh
+from ..mesh import (
+    Mesh,
+    beam_mesh,
+    cfl_dt,
+    dirichlet_nodes,
+    read_mesh,
+    to_p2,
+)
 from ..mesh.geometry import node_to_dof
 from ..ops.assembly import (
     assemble_force,
@@ -87,11 +96,6 @@ def setup_problem(
     """Assemble in float64 on the host, then cast to ``dtype``."""
     mat_cfg = cfg.material
     sol = cfg.solver
-    if sol.deg != 1:
-        raise NotImplementedError(
-            "only P1 tets are ported (the P2 path is steady-only in the "
-            "JAX package; ROADMAP A12c)"
-        )
     if mat_cfg.model not in ("linear", "neo_hookean"):
         raise ValueError(
             f"unknown material.model {mat_cfg.model!r}; expected "
@@ -116,10 +120,21 @@ def setup_problem(
     # load is the full body force, ramped per step
     material_steady = dc_replace(material, ramped=False)
 
-    cells = mesh.tetra
+    if sol.deg == 2:
+        # the steady-only P2 path: a P1 mesh is promoted to tetra10 here;
+        # the dynamic layers refuse deg != 1 themselves
+        if "tetra10" not in mesh.cells:
+            mesh = to_p2(mesh)
+        cells = mesh.cells["tetra10"]
+        corner_tets = cells[:, :4]
+    elif sol.deg == 1:
+        cells = mesh.tetra
+        corner_tets = cells
+    else:
+        raise ValueError(f"unsupported polynomial degree {sol.deg}")
     points = mesh.points
     ndof = mesh.num_dofs
-    dt = cfl_dt(cells, points, mat_cfg.E, mat_cfg.rho, mat_cfg.nu,
+    dt = cfl_dt(corner_tets, points, mat_cfg.E, mat_cfg.rho, mat_cfg.nu,
                 gamma=sol.gamma)
 
     coords = gather_coords(cells, points, dtype=torch.float64)
@@ -130,13 +145,23 @@ def setup_problem(
     lumped_M = assemble_lumped_mass(Me, edofs, ndof)
     F_pre = assemble_force(Fe, edofs, ndof)
 
-    dnodes = dirichlet_nodes(
-        mesh.triangles,
-        points,
-        axis=cfg.partition.dirichlet_axis,
-        value=cfg.partition.dirichlet_value,
-        tol=cfg.partition.dirichlet_tol,
-    )
+    if sol.deg == 2:
+        # the boundary triangles are corner facets, and the edge midpoints
+        # on the clamped plane must be clamped too: detect by coordinate
+        # over all nodes (the plane is the face on these geometries)
+        dnodes = np.flatnonzero(
+            np.abs(points[:, cfg.partition.dirichlet_axis]
+                   - cfg.partition.dirichlet_value)
+            < max(cfg.partition.dirichlet_tol, 1e-9)
+        )
+    else:
+        dnodes = dirichlet_nodes(
+            mesh.triangles,
+            points,
+            axis=cfg.partition.dirichlet_axis,
+            value=cfg.partition.dirichlet_value,
+            tol=cfg.partition.dirichlet_tol,
+        )
     ddofs = node_to_dof(dnodes)
     mask = dirichlet_mask(ndof, ddofs)
 

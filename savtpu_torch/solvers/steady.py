@@ -1,11 +1,18 @@
-"""Steady displacement under the full (unramped) load and the unramped
-load's ghost step (port of ``savtpu/solvers/steady.py``:
-``steady_displacement``, ``ghost_step_init``, ``ghost_step_init_cg``).
+"""Steady solve, the unramped load's ghost step and modal analysis (port of
+``savtpu/solvers/steady.py``: ``steady_solve``, ``_steady_solve_pcg``,
+``_steady_solve_sparse_host``, ``steady_displacement``, ``eigen_modes``,
+``ghost_step_init``, ``ghost_step_init_cg``).
 
 K d = F with strong Dirichlet rows (zeroed rows/columns, unit diagonal,
-zero right-hand side), solved once on the host in float64. The JAX
-package uses a dense solve up to 6000 DOFs and PCG beyond; here the
-assembled system goes to SciPy's sparse direct solver at every size.
+zero right-hand side), solved once per run, by the JAX package's route:
+- up to 6,000 DOFs the dense assembled system, one float64
+  ``torch.linalg.solve`` on the tensors' device;
+- beyond, two-level preconditioned CG (Jacobi plus a trilinear coarse
+  grid over the bounding box) in float64 NumPy/SciPy on the host, as
+  there: the attainable residual of CG is about eps * kappa(K), which
+  float32 cannot bring under 1 at the sizes that need it;
+- a PCG result above 1e-6 relative residual goes to SciPy's sparse direct
+  solver.
 
 The ghost step d_{-1} of an unramped load (the load is on at t = 0, so
 the initial acceleration is not 0) solves the consistent mass system:
@@ -18,6 +25,7 @@ so both take the same iterations. Both run on the tensors' device.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import scipy.sparse as sps
@@ -26,44 +34,260 @@ import torch
 
 from ..ops.assembly import (
     FIntOperator,
+    apply_dirichlet_dense,
     assemble_dense,
     assemble_vector,
     dirichlet_mask,
 )
 from ..ops.element import batch_element_mkf
+from ..utils import resolve_device
+
+# the dense route's limit, and the residual a PCG result must reach: any
+# float64 solve reaches about eps * kappa(K) (about 1e-7 at 384x16x16),
+# and the sparse direct fallback cannot beat it
+DENSE_MAX_NDOF = 6000
+PCG_ACCEPT = 1e-6
 
 
-def steady_solve(Ke, Fe, edofs, ndof: int, dirichlet_dofs) -> np.ndarray:
-    """Solve K d = F (float64, host) with homogeneous Dirichlet DOFs."""
-    Ke = np.asarray(Ke, dtype=np.float64)
-    Fe = np.asarray(Fe, dtype=np.float64)
-    edofs = np.asarray(edofs, dtype=np.int64)
-    E, nb3 = edofs.shape
-    rows = np.repeat(edofs, nb3, axis=1).reshape(-1)
-    cols = np.tile(edofs, (1, nb3)).reshape(-1)
-    keep = np.ones(ndof)
-    d = np.asarray(dirichlet_dofs, dtype=np.int64)
-    keep[d] = 0.0
-    vals = Ke.reshape(-1) * keep[rows] * keep[cols]
-    K = sps.coo_matrix((vals, (rows, cols)), shape=(ndof, ndof)).tocsr()
-    K = K + sps.coo_matrix(
-        (np.ones(len(d)), (d, d)), shape=(ndof, ndof)
+def _as64(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                           dtype=torch.float64)
+
+
+def steady_solve(Ke, Fe, edofs, ndof: int, dirichlet_dofs, points=None,
+                 info: dict | None = None) -> torch.Tensor:
+    """Solve K d = F (float64) with homogeneous Dirichlet DOFs. Returns a
+    float64 tensor on ``Ke``'s device. ``info`` receives the route
+    ("dense", "pcg" or "sparse") and PCG's iterations and residual."""
+    Ke, Fe = _as64(Ke), _as64(Fe)
+    if info is None:
+        info = {}
+    if ndof <= DENSE_MAX_NDOF:
+        info["route"] = "dense"
+        K = assemble_dense(Ke, edofs, ndof)
+        F = assemble_vector(Fe, edofs, ndof)
+        K, F = apply_dirichlet_dense(K, F, dirichlet_dofs)
+        return torch.linalg.solve(K, F)
+    Ke_h, Fe_h = Ke.cpu().numpy(), Fe.cpu().numpy()
+    x, rel = _steady_solve_pcg(Ke_h, Fe_h, edofs, ndof, dirichlet_dofs,
+                               points=points, info=info)
+    if rel <= PCG_ACCEPT:
+        info["route"] = "pcg"
+        return torch.as_tensor(x).to(Ke.device)
+    # PCG stagnated (pathological conditioning): the sparse direct solve
+    info["route"] = "sparse"
+    x = _steady_solve_sparse_host(Ke_h, Fe_h, edofs, ndof, dirichlet_dofs)
+    return torch.as_tensor(x).to(Ke.device)
+
+
+def _dirichlet_system(Ke, Fe, edofs, ndof, dirichlet_dofs):
+    """(K CSR, F, keep) on the host in float64: the element blocks summed,
+    the Dirichlet rows and columns zeroed, a unit diagonal there."""
+    ed = np.asarray(edofs, dtype=np.int32)  # int32 halves the COO sort
+    nb3 = ed.shape[1]
+    rows = np.repeat(ed, nb3, axis=1).reshape(-1)
+    cols = np.tile(ed, (1, nb3)).reshape(-1)
+    K = sps.coo_matrix(
+        (np.asarray(Ke, dtype=np.float64).reshape(-1), (rows, cols)),
+        shape=(ndof, ndof),
     ).tocsr()
+    keep = np.ones(ndof)
+    keep[np.asarray(dirichlet_dofs)] = 0.0
+    Dk = sps.diags(keep)
+    K = Dk @ K @ Dk + sps.diags(1.0 - keep)
     F = np.zeros(ndof)
-    np.add.at(F, edofs.reshape(-1), Fe.reshape(-1))
-    F = F * keep
+    np.add.at(F, ed.reshape(-1), np.asarray(Fe, np.float64).reshape(-1))
+    return K, F * keep, keep
+
+
+def _coarse_space(Ksp, points, ndof, coarse_target):
+    """The coarse correction r -> P K_c^-1 P^T r: P trilinear
+    interpolation from a regular grid of about ``coarse_target`` DOFs over
+    the bounding box (geometry only), K_c = P^T K P factored once by
+    Cholesky (with a diagonal jitter ladder; an eigen-decomposition if
+    every rung fails). Returns (apply, coarse cell counts)."""
+    pts = np.asarray(points, dtype=np.float64)
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    span = np.maximum(hi - lo, 1e-12)
+    n_nodes_target = max(coarse_target // 3, 8)
+    scale = (n_nodes_target / float(np.prod(span))) ** (1.0 / 3.0)
+    cdims = np.maximum((span * scale).astype(int), 1)  # cells per axis
+    while np.prod(cdims + 1) * 3 > coarse_target * 1.5:
+        cdims = np.maximum(cdims - 1, 1)
+    ncx, ncy, ncz = (int(c) for c in cdims)
+    n_coarse = (ncx + 1) * (ncy + 1) * (ncz + 1)
+    u = (pts - lo) / span * cdims  # in [0, cdims]
+    cell = np.minimum(u.astype(int), cdims - 1)
+    frac = u - cell
+    strides = np.array([(ncy + 1) * (ncz + 1), ncz + 1, 1], dtype=np.int64)
+    corners = np.array(
+        [[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)],
+        dtype=np.int64,
+    )
+    cidx = ((cell[:, None, :] + corners[None, :, :]) * strides).sum(-1)
+    wxyz = np.stack([1.0 - frac, frac], axis=2)  # (Nf, 3, 2)
+    w = (wxyz[:, 0, corners[:, 0]] * wxyz[:, 1, corners[:, 1]]
+         * wxyz[:, 2, corners[:, 2]])  # (Nf, 8)
+    nc_dof = 3 * n_coarse
+    Nf = pts.shape[0]
+    rP = np.broadcast_to(
+        3 * np.arange(Nf)[:, None, None] + np.arange(3)[None, None, :],
+        (Nf, 8, 3),
+    ).reshape(-1)
+    cP = (3 * cidx[:, :, None] + np.arange(3)[None, None, :]).reshape(-1)
+    vP = np.broadcast_to(w[:, :, None], (Nf, 8, 3)).reshape(-1)
+    Pmat = sps.coo_matrix((vP, (rP, cP)), shape=(ndof, nc_dof)).tocsr()
+    Kc = (Pmat.T @ (Ksp @ Pmat)).toarray()
+    Kc = 0.5 * (Kc + Kc.T)
+    # coarse nodes whose support holds no fine node give zero rows: a
+    # small diagonal jitter decouples them (their residual is exactly 0).
+    # The Cholesky factor comes from torch's LAPACK on the host (float64;
+    # SciPy's took 20 times as long on some installations), and the
+    # coarse solve applies K_c^-1 formed from it once: one threaded
+    # matrix-vector product an iteration, where two triangular solves
+    # read the factor on one thread (0.15 s an iteration at 4,425 coarse
+    # DOFs)
+    diag_scale = max(float(np.trace(Kc)) / nc_dof, 1e-30)
+    L = None
+    for jit_eps in (1e-12, 1e-9, 1e-6):
+        Kc_j = Kc.copy()
+        Kc_j[np.arange(nc_dof), np.arange(nc_dof)] += jit_eps * diag_scale
+        L, bad = torch.linalg.cholesky_ex(torch.from_numpy(Kc_j))
+        if int(bad) == 0:
+            break
+        L = None
+    if L is None:
+        lam, V = np.linalg.eigh(Kc)
+        lam_max = float(lam[-1]) if len(lam) else 1.0
+        keep_modes = lam > 1e-12 * max(lam_max, 1e-30)
+        W = V[:, keep_modes] / np.sqrt(lam[keep_modes])
+
+        def apply(r):
+            return Pmat @ (W @ (W.T @ (Pmat.T @ r)))
+    else:
+
+        Kc_inv = torch.cholesky_inverse(L)
+
+        def apply(r):
+            rc = torch.from_numpy(np.ascontiguousarray(Pmat.T @ r))
+            return Pmat @ torch.mv(Kc_inv, rc).numpy()
+
+    return apply, (ncx, ncy, ncz)
+
+
+def _steady_solve_pcg(
+    Ke,
+    Fe,
+    edofs,
+    ndof: int,
+    dirichlet_dofs,
+    points=None,
+    rtol: float = 1e-10,
+    maxiter: int = 20_000,
+    coarse_target: int = 4096,
+    coarse_min_ndof: int = 20_000,
+    info: dict | None = None,
+):
+    """Two-level preconditioned CG, float64 on the host:
+
+        M^-1 = D^-1 + P K_c^-1 P^T        (additive two-level Schwarz)
+
+    with the coarse term only when ``points`` are given and ndof >
+    ``coarse_min_ndof`` (it carries the slender beam's slow bending
+    modes, which stall Jacobi-CG). The true residual replaces the
+    recursive one every 200 iterations. Returns ``(x, final relative
+    residual)``; ``info`` receives iterations, the residual, the coarse
+    grid and the seconds."""
+    t0 = time.perf_counter()
+    Ksp, F64, _ = _dirichlet_system(Ke, Fe, edofs, ndof, dirichlet_dofs)
+    invdiag = 1.0 / Ksp.diagonal()
+    apply_coarse, cdims = None, None
+    if points is not None and ndof > coarse_min_ndof:
+        apply_coarse, cdims = _coarse_space(Ksp, points, ndof, coarse_target)
+    if apply_coarse is None:
+        Minv = lambda r: r * invdiag  # noqa: E731
+    else:
+        Minv = lambda r: r * invdiag + apply_coarse(r)  # noqa: E731
+    t_setup = time.perf_counter() - t0
+
+    x = np.zeros(ndof)
+    r = F64.copy()
+    nF = float(np.linalg.norm(F64))
+    it = -1
+    if nF == 0.0:
+        rel = 0.0
+    else:
+        z = Minv(r)
+        p = z.copy()
+        rz = float(r @ z)
+        for it in range(maxiter):
+            Ap = Ksp @ p
+            pAp = float(p @ Ap)
+            if not np.isfinite(pAp) or pAp <= 0.0:
+                break
+            alpha = rz / pAp
+            x += alpha * p
+            r -= alpha * Ap
+            if (it + 1) % 200 == 0:
+                r = F64 - Ksp @ x  # refresh against recursion drift
+            rel = float(np.linalg.norm(r) / nF)
+            if rel <= rtol:
+                break
+            z = Minv(r)
+            rz_new = float(r @ z)
+            p = z + (rz_new / rz) * p
+            rz = rz_new
+        rel = float(np.linalg.norm(F64 - Ksp @ x) / nF)
+    if info is not None:
+        info.update(iterations=it + 1, rel_residual=rel, coarse_cells=cdims,
+                    setup_s=t_setup, seconds=time.perf_counter() - t0)
+    return x, rel
+
+
+def _steady_solve_sparse_host(Ke, Fe, edofs, ndof, dirichlet_dofs):
+    """SciPy's sparse direct solve of the Dirichlet system (float64)."""
+    K, F, _ = _dirichlet_system(Ke, Fe, edofs, ndof, dirichlet_dofs)
     return spla.spsolve(K.tocsc(), F)
 
 
-def steady_displacement(prob) -> np.ndarray:
-    """Steady displacement of an AssembledProblem under the unramped
-    load."""
+def steady_displacement(prob, device=None, info: dict | None = None
+                        ) -> np.ndarray:
+    """Steady displacement (float64, host) of an AssembledProblem under
+    the unramped load, P1 or the steady-only P2 path. The dense route
+    solves on ``device`` (default CUDA, through ``resolve_device``); the
+    host PCG takes the problem's host arrays as they are."""
+    dev = resolve_device(device)
     mat = dataclasses.replace(prob.material, ramped=False)
-    Fe = batch_element_mkf(prob.deg, prob.n_quad, mat, 0.0, prob.coords)[2]
-    return steady_solve(
-        prob.Ke.to(torch.float64).numpy(), Fe.to(torch.float64).numpy(),
-        prob.edofs, prob.ndof, prob.dirichlet_dofs,
-    )
+    coords, Ke = prob.coords, prob.Ke
+    if prob.ndof <= DENSE_MAX_NDOF:
+        coords, Ke = coords.to(dev), Ke.to(dev)
+    Fe = batch_element_mkf(prob.deg, prob.n_quad, mat, 0.0, coords)[2]
+    d = steady_solve(Ke, Fe, prob.edofs, prob.ndof, prob.dirichlet_dofs,
+                     points=prob.mesh.points, info=info)
+    return d.cpu().numpy()
+
+
+def eigen_modes(Me, Ke, edofs, ndof: int, dirichlet_dofs,
+                num: int = 50) -> torch.Tensor:
+    """The first ``num`` natural frequencies (Hz) of K phi = w^2 M phi,
+    float64 on ``Ke``'s device: the Dirichlet rows and columns dropped
+    from both, and each constrained DOF a zero-frequency mode, as in the
+    JAX package's spectrum. The free block is reduced by M's Cholesky
+    factor (C = L^-1 K L^-T) and ``eigvalsh``'d."""
+    Ke = _as64(Ke)
+    K = assemble_dense(Ke, edofs, ndof)
+    M = assemble_dense(_as64(Me).to(Ke.device), edofs, ndof)
+    keep = np.ones(ndof, dtype=bool)
+    keep[np.asarray(dirichlet_dofs)] = False
+    free = torch.as_tensor(np.flatnonzero(keep), device=K.device)
+    K, M = K[free][:, free], M[free][:, free]
+    L = torch.linalg.cholesky(M)
+    A = torch.linalg.solve_triangular(L, K, upper=False)
+    C = torch.linalg.solve_triangular(L, A.T, upper=False).T
+    omega_sq = torch.linalg.eigvalsh(0.5 * (C + C.T))
+    omega_sq = torch.cat([omega_sq.new_zeros(ndof - len(free)), omega_sq])
+    freqs = torch.sqrt(torch.clamp(omega_sq, min=0.0)) / (2 * np.pi)
+    return freqs[:num]
 
 
 def ghost_step_init(Me, Ke, Fe_t0, edofs, ndof: int, dirichlet_dofs, d0, v0,

@@ -1,32 +1,14 @@
-"""Run log (port of ``savtpu/utils/profiling.py``: ``MetricsLog`` and
-``stage_log``) and device selection."""
+"""Device selection, and the run log, step timer and profiler trace of
+``utils/profiling.py`` (re-exported)."""
 
 from __future__ import annotations
 
-import json
-import time
-from pathlib import Path
-
 import torch
 
+from .profiling import MetricsLog, StepTimer, profile_trace, stage_log
 
-class MetricsLog:
-    """Append-only JSONL run log: one {"ts", "event", **fields} line per
-    event. Every pipeline stage appends to <workdir>/metrics.jsonl."""
-
-    def __init__(self, path: str | Path):
-        self.path = Path(path)
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-
-    def log(self, event: str, **fields) -> None:
-        rec = {"ts": round(time.time(), 3), "event": event, **fields}
-        with open(self.path, "a") as fh:
-            fh.write(json.dumps(rec) + "\n")
-
-
-def stage_log(cfg) -> MetricsLog:
-    """The pipeline's shared metrics log under cfg.workdir."""
-    return MetricsLog(Path(cfg.workdir) / "metrics.jsonl")
+__all__ = ["MetricsLog", "StepTimer", "profile_trace", "stage_log",
+           "resolve_device", "full_precision_products", "synchronize"]
 
 
 def resolve_device(device=None) -> torch.device:

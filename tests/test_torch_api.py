@@ -6,7 +6,8 @@ against savtpu's, on the CPU.
   solver);
 - ``solver()``: the context's ShardedSolver, whose exchanged run is the
   stage-1 run;
-- ``steady()`` at ``deg = 2`` raises, naming ROADMAP A12c.
+- ``steady()`` at ``deg = 2`` (the steady-only P2 path, no sharded
+  context): savtpu's at 1e-10 of the max.
 """
 
 import numpy as np
@@ -57,11 +58,18 @@ def test_solver_is_the_contexts(tmp_path):
     assert bool(torch.isfinite(carry[0]).all())
 
 
-def test_steady_p2_names_the_roadmap(tmp_path):
+def test_steady_p2_matches_savtpu(tmp_path):
+    from savtpu.api import Simulation as JSimulation
+    from savtpu.config import Config as JConfig
+
     from savtpu_torch.api import Simulation
     from savtpu_torch.config import Config
 
-    cfg = _cfg(Config, tmp_path)
-    cfg.solver.deg = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A12c"):
-        Simulation(cfg, device="cpu", verbose=False).steady()
+    cfg, cj = _cfg(Config, tmp_path / "port"), _cfg(JConfig, tmp_path / "j")
+    cfg.solver.deg = cj.solver.deg = 2
+    got = Simulation(cfg, device="cpu", verbose=False).steady()
+    want = np.asarray(JSimulation(cj, verbose=False).steady())
+    # the P2 beam: 13 x 3 x 3 nodes
+    assert got.shape == want.shape == (3 * 13 * 3 * 3,)
+    assert np.abs(want).max() > 0.0
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()

@@ -9,7 +9,9 @@ on its box stencil with the seam-wrapped grid exchange) and its
 blocked: JAX, flax, optax, h5py, meshio, matplotlib, and
 savtpu itself; then the solver-options slice (ell and ebe forces, the
 permute exchange, an unramped load, resync blocks, checkpoints) and a
-stage's command line. Runs in a subprocess whose import system refuses those
+stage's command line; then the serial-solver and steady slice (stage 1
+at ``deg = 2``, stage 3's grid, the serial runner with linear and
+Neo-Hookean forces, eigen modes). Runs in a subprocess whose import system refuses those
 names."""
 
 import subprocess
@@ -233,6 +235,58 @@ SCRIPT = textwrap.dedent(
     cfg.to_json({workdir!r} + "/options/cfg.json")
     data_prepare.main(["--config", {workdir!r} + "/options/cfg.json",
                        "--device", "cpu", "--no-resume"])
+
+    # the serial-solver and steady slice: stage 1 at deg = 2 (the
+    # steady-only P2 path), stage 3's grid on the LSTM run's artifacts,
+    # the serial runner (linear and Neo-Hookean) and eigen modes
+    cfg = Config()
+    cfg.workdir = {workdir!r} + "/p2/Results"
+    cfg.model_dir = {workdir!r} + "/p2/Distributed_save"
+    cfg.beam_cells = (5, 1, 1)
+    cfg.beam_extent = (5.0, 1.0, 1.0)
+    cfg.solver.deg = 2
+    prob = data_prepare.run(cfg, verbose=False, device="cpu")
+    assert prob.edofs.shape[1] == 30
+    from savtpu_torch.mesh import read_vtk
+    assert read_vtk(cfg.workdir + "/Static/steady_distributed.vtk"
+                    ).num_points == prob.mesh.num_points
+
+    from savtpu_torch.pipeline import model_training
+    cfg = Config()
+    cfg.workdir = {workdir!r} + "/lstm/Results"
+    cfg.model_dir = {workdir!r} + "/lstm/Distributed_save"
+    cfg.beam_cells = (6, 1, 1)
+    cfg.beam_extent = (6.0, 1.0, 1.0)
+    cfg.partition.n_parts = 2
+    cfg.solver.num_steps = 90
+    s = cfg.surrogate
+    s.n_past, s.n_future, s.filter_size = 4, 4, 5
+    s.batch_size, s.num_epochs, s.hidden_size = 2, 1, 8
+    res = model_training.run_grid(cfg, [2], [1e-3, 2e-3], [8],
+                                  verbose=False, device="cpu")
+    assert len(res) == 2
+
+    from savtpu_torch.ops.assembly import FIntOperator
+    from savtpu_torch.ops.element import batch_element_mkf
+    from savtpu_torch.ops.material import NeoHookean
+    from savtpu_torch.solvers import (
+        NeoHookeanFIntOperator, eigen_modes, make_step_fn, run_explicit,
+        setup_problem)
+    prob = setup_problem(cfg)
+    for op in (FIntOperator(prob.Ke, prob.edofs, prob.ndof, mode="ebe"),
+               NeoHookeanFIntOperator(
+                   NeoHookean.from_engineering(E=1e6, nu=0.3, rho=1.0,
+                                               fz=0.5),
+                   prob.coords, prob.edofs, prob.ndof)):
+        step = make_step_fn(op, prob.F_pre, prob.lumped_M, prob.mask,
+                            prob.alpha, prob.dt)
+        traj, _ = run_explicit(step, prob.d0, prob.dn, 0.0, prob.dt, 40,
+                               save_every=4)
+        assert traj.shape == (10, prob.ndof)
+        assert bool(torch.isfinite(traj).all())
+    Me, Ke, _ = batch_element_mkf(1, 2, prob.material, 0.0, prob.coords)
+    assert eigen_modes(Me, Ke, prob.edofs, prob.ndof,
+                       prob.dirichlet_dofs, num=20).shape == (20,)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -151,5 +151,5 @@ def test_steady_displacement_f64():
 
     cj, ct = _cfgs()
     a = np.asarray(j_steady(j_setup(cj)))
-    b = t_steady(t_setup(ct))
+    b = t_steady(t_setup(ct), device="cpu")
     np.testing.assert_allclose(b, a, rtol=0, atol=1e-10 * np.abs(a).max())
