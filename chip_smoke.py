@@ -11,20 +11,22 @@
 dtype in phase 3 (default float32, as published; float64, also
 compensated so that it runs the same kernel, separates round-off from
 the rest). ``--lstm-epochs`` sets the default configuration's training
-depth (default 150, cut from the published 3,450 to keep the script
+depth (default 120, cut from the published 3,450 to keep the script
 within about 560 s: 300 until the unstructured paths came, 200 until the
-serial-solver and steady paths did);
+serial-solver and steady paths did, 150 until the device-mesh path did);
 ``--nh-steps`` nh_box_96's depth (default 40,000, which lets expfit fit
 past the load ramp with 143 stored rows, 64 needed; 50,000 until the
 serial-solver and steady paths came; 100,000 published);
 ``--surrogate-epochs`` the training epochs of the hybrids (nh_box_96's
-and tube_hybrid's residual LSTMs, default 60: 100 until the
-serial-solver and steady paths came); ``--leg-epochs`` those of the
-default run's ensemble and per-rank legs (default 20: 100 until the
+and tube_hybrid's residual LSTMs, default 40: 100 until the
+serial-solver and steady paths came, 60 until the device-mesh path
+did); ``--leg-epochs`` those of the
+default run's ensemble and per-rank legs (default 12: 100 until the
 unstructured paths came, 50 until the solver-options paths did, 30 until
-the serial-solver and steady paths did;
-their stages 4-5 run the first 21,000 of its 100,000 steps, 30,000
-until the serial-solver and steady paths came); ``--tube-steps``
+the serial-solver and steady paths did, 20 until the device-mesh path
+did; their stages 4-5 run the first 12,000 of its 100,000 steps, 30,000
+until the serial-solver and steady paths came, 21,000 until the
+device-mesh path did); ``--tube-steps``
 tube_hybrid's depth (default 45,000, which clears its load ramp by 127
 stored rows; 60,000 until the serial-solver and steady paths came;
 100,000 published). The stage-3 epoch timing of phase 4 replays 10 epochs (20
@@ -126,7 +128,7 @@ Phases, each reported with its seconds and the running total against a
    steps, the training cut to ``--lstm-epochs``: stage seconds, epochs/s
    and Adam steps/s, the rel-L2, the warm-up rows equal to stage 1's bit
    for bit; and its stage 4 again from a copy in fint_mode "pallas",
-   over its first 21,000 steps, where K1 must launch once a step and the
+   over its first 12,000 steps, where K1 must launch once a step and the
    result stay within 1e-5 of the dense run; then stages 3-5 on its
    stage 1-2 artifacts again with the linear surrogate, a seed ensemble
    of 2 and per-rank LSTMs with mixed teacher forcing and dropout (``default_config_*``: stage
@@ -173,7 +175,16 @@ Phases, each reported with its seconds and the running total against a
    refusing deg = 2 with savtpu's message) and ``stage3_grid`` (the
    stage-3 command line with ``--grid-lrs`` of two rates at 10 epochs on
    the default run's stage 1-2 artifacts: two run-tag directories, each
-   rank's model.npz, finite losses, seconds);
+   rank's model.npz, finite losses, seconds); and the device mesh
+   (``mesh_slice_96x8x8_p16``: the slice's stages 1 and 4 over NCCL
+   ranks, one process and one card each, as many as the cards allow that
+   divide 16, from a copy of the slice's stage 2-3 artifacts, K3 once a
+   comm-free block on every rank; ``mesh_default_pallas_stage1``: the
+   default configuration's stage 1 in pallas mode over the first 3,000
+   of its steps, K1 once a step on every rank; each held against the
+   emulated run, bit for bit at one rank, within 1e-12 in float64 and
+   1e-4 for the float32 slice over several; per-rank stage seconds
+   beside the emulated ones);
 4. kernel timing with CUDA events: kernel, plain version, bound (and for
    K2, K3 and K4 the floor of re-reading the operator from HBM every
    step), the plan K3 and K4 ran with, the PyTorch call that computes
@@ -209,6 +220,7 @@ the checkout, except the kernel libraries (savtpu_torch/_build/).
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import shutil
@@ -230,8 +242,9 @@ SAVE_EVERY = 50
 # epochs so that the script, with the surrogate legs and the unstructured
 # paths, stays within about 560 s (PERF.md); --lstm-epochs 3450 runs it
 # in full (300 until the unstructured slice took 34 s of its stage 3,
-# 200 until the serial-solver and steady slice took about 30 s)
-LSTM_EPOCHS = 150
+# 200 until the serial-solver and steady slice took about 30 s, 150 until
+# the device-mesh path took 23 s)
+LSTM_EPOCHS = 120
 # nh_box_96's depth: 0.75 x 40,000 steps clears the 1 s load ramp (step
 # 22,825 at its dt of 4.38e-5 s) by 143 stored rows, more than the 64 that
 # expfit's post-ramp segment needs at order 16, so that stage 3 fits it
@@ -240,23 +253,26 @@ LSTM_EPOCHS = 150
 NH_STEPS = 40_000
 # training epochs of the hybrids' residual LSTMs (nh_box_96, tube_hybrid),
 # cut from the published 3,450 (100 until the serial-solver and steady
-# slice; at 100 the residual LSTMs learned nothing, R^2 about 0)
-SURROGATE_EPOCHS = 60
+# slice, 60 until the device-mesh path; at 100 the residual LSTMs learned
+# nothing, R^2 about 0)
+SURROGATE_EPOCHS = 40
 # training epochs of the default run's ensemble and per-rank legs (100
 # until the unstructured slice took 25 s of them, 50 until the
 # solver-options slice took 12 s more, 30 until the serial-solver and
-# steady slice)
-LEG_EPOCHS = 20
+# steady slice, 20 until the device-mesh path)
+LEG_EPOCHS = 12
 # the depth of the default run's second, pallas-mode stage 4: the warm-up
-# and six whole 3,000-step blocks (100,000 until the solver-options slice
-# needed its time; most of it went to compressed .npz writes)
-K1_LEG_STEPS = 21_000
+# and three whole 3,000-step blocks (100,000 until the solver-options
+# slice needed its time, 21,000 until the device-mesh path did; most of
+# it went to compressed .npz writes)
+K1_LEG_STEPS = 12_000
 # the depth of the surrogate legs' stages 4-5 on the default run's stage
-# 1-2 artifacts: the warm-up and six whole 3,000-step blocks (100,000
+# 1-2 artifacts: the warm-up and three whole 3,000-step blocks (100,000
 # until the sweep's 96x8x8/64 permute check and run-to-run spread needed
-# the time, 30,000 until the serial-solver and steady slice did; their
-# stage 4 is mostly compressed .npz writes)
-LEG_STEPS = 21_000
+# the time, 30,000 until the serial-solver and steady slice did, 21,000
+# until the device-mesh path did; their stage 4 is mostly compressed .npz
+# writes)
+LEG_STEPS = 12_000
 # the card's peaks, HBM bytes/s and float32 FLOP/s off the tensor cores:
 # set in main from savtpu_torch.utils.roofline.device_peaks (the H100 SXM
 # data sheet's 3.35e12 and 67e12), the table the package's roofline reads
@@ -3719,6 +3735,269 @@ def check_roofline_profile_offload(sp_slice, sweep_rows, sweep_sps, dev,
     return res
 
 
+# ---- the device mesh: torch.distributed in place of shard_map, stages 1
+# ---- and 4 over NCCL ranks, one process and one card each
+
+# the default configuration's stage 1 in pallas mode under the mesh runs
+# this prefix of its 100,000 steps: K1 once a step on every rank
+MESH_K1_STEPS = 3_000
+# the mesh's result against the emulated run's over several ranks (the
+# all-reduce adds in another order): float64 1e-12, the float32 slice
+# 1e-4 (K3's own limit against its plain version is 3e-5 a block)
+MESH_TOL = {"float64": 1e-12, "float32": 1e-4}
+# a rank still running after this many seconds prints its stacks and
+# exits, which fails the spawn: a hung collective fails the script
+MESH_RANK_LIMIT_S = 240
+
+
+def mesh_world(n_parts: int) -> int:
+    """The mesh path's ranks for ``n_parts`` parts: one a card, the most
+    the cards allow that divide the part count (1 on one card)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return max(d for d in range(1, n + 1) if n_parts % d == 0)
+
+
+def mesh_rank(rank, world, init, jobs, out_dir, limit_s):
+    """One rank of the mesh path, a process of its own on card ``rank``:
+    joins the NCCL process group at ``init``, runs each job's stages
+    through ``api.Simulation(cfg, device_mesh=make_device_mesh())`` with
+    the kernels' counts set to 0 just before each stage and read just
+    after, and writes its readings to out_dir/rank<rank>.json. An
+    exception ends the process, which fails the spawn and the script; so
+    does running past ``limit_s`` seconds (its stacks are printed)."""
+    import faulthandler
+    import os
+    from datetime import timedelta
+
+    faulthandler.dump_traceback_later(limit_s, exit=True)
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from savtpu_torch import api
+    from savtpu_torch.config import Config
+    from savtpu_torch.parallel import make_device_mesh
+
+    torch.cuda.set_device(rank)
+    # the ranks share the host: each assembles the whole problem there
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("nccl", init_method=init, rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300),
+                            device_id=torch.device("cuda", rank))
+    sim = ctx = fn = None
+    try:
+        mesh = make_device_mesh()
+        readings = {}
+        for job in jobs:
+            cfg = Config.from_json(job["cfg"])
+            sim = api.Simulation(cfg, verbose=False, device_mesh=mesh)
+            t0 = time.perf_counter()
+            ctx = sim.ctx
+            rec = {"world": world, "backend": dist.get_backend(),
+                   "device": str(ctx.device), "parts": list(ctx.parts),
+                   "setup_s": round(time.perf_counter() - t0, 3)}
+            for stage, fn in (("stage1", sim.generate_data),
+                              ("stage4", sim.run_online)):
+                if stage not in job["stages"]:
+                    continue
+                torch.cuda.synchronize()
+                zero_kernel_launches()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                rec[f"{stage}_s"] = round(time.perf_counter() - t0, 3)
+                rec[f"{stage}_launches"] = linear_kernel_launches()
+            readings[job["name"]] = rec
+    finally:
+        # the stepper's captured graphs hold NCCL work that the
+        # communicator waits for when it is destroyed: free them first
+        # (the last stage's bound method holds the Simulation too)
+        sim = ctx = fn = None
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(readings))
+
+
+def spawn_mesh(root: Path, world: int, jobs, limit_s=MESH_RANK_LIMIT_S):
+    """Run ``jobs`` over ``world`` ranks (:func:`mesh_rank`); returns
+    their readings in rank order and the spawn's wall seconds. The
+    kernels are built before (phase 1), so no rank runs nvcc."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out = root / f"mesh_world{world}"
+    out.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(world, f"file://{out}/pg", jobs,
+                                        str(out), limit_s),
+                       nprocs=world, join=True, start_method="spawn")
+    wall = round(time.perf_counter() - t0, 3)
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)], wall
+
+
+def artifact_diff(cfg_a, cfg_b, what, n_parts, rows=None):
+    """Every part's stored ``what`` of two runs: (equal bit for bit, the
+    largest |a - b| over b's largest, the largest |a - b|); ``rows`` cuts
+    b to its first rows."""
+    import numpy as np
+
+    from savtpu_torch.io.artifacts import ArtifactStore, load_displacement
+
+    sa, sb = (ArtifactStore(c.workdir, c.model_dir, c.surrogate.run_tag())
+              for c in (cfg_a, cfg_b))
+    equal, rel, err = True, 0.0, 0.0
+    for r in range(n_parts):
+        a = load_displacement(getattr(sa, what)(r))
+        b = load_displacement(getattr(sb, what)(r))
+        if rows is not None:
+            b = b[:, :rows]
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise RuntimeError(f"{what} of part {r}: shapes {a.shape}, "
+                               f"{b.shape} or non-finite")
+        equal &= bool(np.array_equal(a, b))
+        d = float(np.abs(a - b).max())
+        err = max(err, d)
+        rel = max(rel, d / max(float(np.abs(b).max()), 1e-300))
+    return equal, rel, err
+
+
+def run_mesh_path(root: Path, dev, steps, dtype, slice_times,
+                  limit_s=MESH_RANK_LIMIT_S):
+    """Phase 3's mesh path. The slice: stages 1 and 4 over
+    ``mesh_world(16)`` ranks from a copy of phase 3's slice (its stage
+    2-3 artifacts feed stage 4), held against phase 3's emulated
+    dynamics and modeled rows, K3 once a comm-free block on every rank.
+    The default configuration in pallas mode: stage 1 over
+    ``mesh_world(2)`` ranks for MESH_K1_STEPS steps, K1 once a step on
+    every rank, held against the same prefix run emulated here. At one
+    rank both must equal the emulated runs bit for bit, over several
+    within MESH_TOL. Returns {phase name: readings with "failures"}."""
+    from savtpu_torch import api
+    from savtpu_torch.ops.dense_step import batched_fint_matvec
+
+    shutil.copytree(root / "slice", root / "mesh_slice")
+    cfg_s = slice_config(root / "mesh_slice", steps, dtype)
+    cfg_ref = slice_config(root / "slice", steps, dtype)
+    cfg_s.to_json(root / "mesh_slice.json")
+    cfg_d = lstm_config(root / "mesh_default", 1, fint_mode="pallas")
+    cfg_d.solver.num_steps = MESH_K1_STEPS
+    cfg_d.to_json(root / "mesh_default.json")
+    cfg_e = lstm_config(root / "mesh_default_emulated", 1,
+                        fint_mode="pallas")
+    cfg_e.solver.num_steps = MESH_K1_STEPS
+    batched_fint_matvec.launches = 0
+    t0 = time.perf_counter()
+    api.Simulation(cfg_e, device=dev, verbose=False).generate_data()
+    emulated_s = round(time.perf_counter() - t0, 3)
+    emulated_k1 = batched_fint_matvec.launches
+
+    jobs = {"mesh_slice": dict(cfg=str(root / "mesh_slice.json"),
+                               stages=["stage1", "stage4"],
+                               world=mesh_world(cfg_s.partition.n_parts)),
+            "mesh_default_pallas": dict(
+                cfg=str(root / "mesh_default.json"), stages=["stage1"],
+                world=mesh_world(cfg_d.partition.n_parts))}
+    readings, walls = {}, {}
+    for world in sorted({j["world"] for j in jobs.values()}):
+        mine = [dict(name=n, **j) for n, j in jobs.items()
+                if j["world"] == world]
+        ranks, walls[world] = spawn_mesh(root, world, mine, limit_s)
+        for j in mine:
+            readings[j["name"]] = [r[j["name"]] for r in ranks]
+
+    out = {}
+    # the slice against phase 3's emulated run
+    ranks = readings["mesh_slice"]
+    world = len(ranks)
+    blocks = -(-(steps - cfg_s.surrogate.i_cri - 1)
+               // cfg_s.surrogate.block_size)
+    P = cfg_s.partition.n_parts
+    dyn = artifact_diff(cfg_s, cfg_ref, "dynamics_h5", P)
+    mod = artifact_diff(cfg_s, cfg_ref, "modeled_h5", P)
+    k3 = [r["stage4_launches"]["online_chunk"] for r in ranks]
+    other = [{k: v for k, v in r[f"{s}_launches"].items()
+              if v and not (s == "stage4" and k == "online_chunk")}
+             for r in ranks for s in ("stage1", "stage4")]
+    ev = stage_events(cfg_s)
+    tol = MESH_TOL[dtype]
+    res = {
+        "world": world, "backend": ranks[0]["backend"],
+        "devices": [r["device"] for r in ranks],
+        "parts_per_rank": [len(r["parts"]) for r in ranks],
+        "setup_s_per_rank": [r["setup_s"] for r in ranks],
+        "stage1_s_per_rank": [r["stage1_s"] for r in ranks],
+        "stage4_s_per_rank": [r["stage4_s"] for r in ranks],
+        "emulated_stage_s": {k: slice_times[k]
+                             for k in ("stage1_s", "stage4_s")},
+        "stage1_solve_s_per_rank": ev["stage1_solve"]["rank_seconds"],
+        "stage4_online_s_per_rank": ev["stage4_online"]["rank_seconds"],
+        "stage1_steps_per_s": ev["stage1_solve"]["steps_per_sec"],
+        "stage4_steps_per_s": ev["stage4_online"]["steps_per_sec"],
+        "spawn_wall_s": walls[world],
+        "online_banded_launches_per_rank": k3, "blocks": blocks,
+        "dynamics_equal": dyn[0], "dynamics_max_rel": dyn[1],
+        "modeled_equal": mod[0], "modeled_max_rel": mod[1], "tol": tol,
+    }
+    res["failures"] = [msg for bad, msg in (
+        (any(n != blocks for n in k3),
+         f"K3 launched {k3} times on the ranks, not once a comm-free "
+         f"block ({blocks})"),
+        (any(other), f"another kernel launched: {other}"),
+        (world == 1 and not (dyn[0] and mod[0]),
+         "one rank: not the emulated run's bits"),
+        (not (dyn[1] <= tol and mod[1] <= tol),
+         f"the mesh departs from the emulated run: {dyn[1]:.3e}, "
+         f"{mod[1]:.3e}"),
+    ) if bad]
+    out["mesh_slice_96x8x8_p16"] = res
+
+    # the default configuration's stage 1 in pallas mode
+    ranks = readings["mesh_default_pallas"]
+    world = len(ranks)
+    dyn = artifact_diff(cfg_d, cfg_e, "dynamics_h5",
+                        cfg_d.partition.n_parts)
+    k1 = [r["stage1_launches"]["batched_fint_matvec"] for r in ranks]
+    other = [{k: v for k, v in r["stage1_launches"].items()
+              if v and k != "batched_fint_matvec"} for r in ranks]
+    ev = stage_events(cfg_d)
+    res = {
+        "world": world, "backend": ranks[0]["backend"], "steps":
+        MESH_K1_STEPS, "parts_per_rank": [len(r["parts"]) for r in ranks],
+        "setup_s_per_rank": [r["setup_s"] for r in ranks],
+        "stage1_s_per_rank": [r["stage1_s"] for r in ranks],
+        "emulated_stage1_s": emulated_s,
+        "emulated_fint_matvec_launches": emulated_k1,
+        "stage1_solve_s_per_rank": ev["stage1_solve"]["rank_seconds"],
+        "stage1_steps_per_s": ev["stage1_solve"]["steps_per_sec"],
+        "emulated_stage1_steps_per_s": stage_events(cfg_e)[
+            "stage1_solve"]["steps_per_sec"],
+        "spawn_wall_s": walls[world],
+        "fint_matvec_launches_per_rank": k1,
+        "dynamics_equal": dyn[0], "dynamics_max_rel": dyn[1],
+        "dynamics_max_abs": dyn[2], "tol": MESH_TOL["float64"],
+    }
+    res["failures"] = [msg for bad, msg in (
+        (any(n != MESH_K1_STEPS for n in k1),
+         f"K1 launched {k1} times on the ranks, not once a step "
+         f"({MESH_K1_STEPS})"),
+        (any(other), f"another kernel launched: {other}"),
+        (world == 1 and not dyn[0], "one rank: not the emulated run's bits"),
+        (not dyn[1] <= MESH_TOL["float64"],
+         f"the mesh departs from the emulated run: {dyn[1]:.3e}"),
+    ) if bad]
+    out["mesh_default_pallas_stage1"] = res
+    shutil.rmtree(root / "mesh_slice", ignore_errors=True)
+    return out
+
+
 def run_stages(cfg, dev, first: int = 1):
     """The five stages (from stage ``first``) through api.Simulation,
     timed one by one."""
@@ -4241,6 +4520,17 @@ def main(argv=None) -> int:
             **{f"default_config_{n}": r["k1_k4_launches"]
                for n, r in legs.items()}}
 
+        # the device mesh: the slice's stages 1 and 4 (K3 on every rank)
+        # and the default configuration's stage 1 in pallas mode (K1 on
+        # every rank) over NCCL ranks, one a card
+        mesh_paths = run_mesh_path(tmp, dev, steps, opts.dtype, times)
+        for name, res in mesh_paths.items():
+            clock.phase(3, name, **res)
+        failures = {n: r["failures"] for n, r in mesh_paths.items()
+                    if r["failures"]}
+        if failures:
+            raise RuntimeError(f"mesh paths: {failures}")
+
         # ---- phase 4: timing ----
         bound_ms, bound_by, nbytes, flops = k3_bound(args, Tc, SAVE_EVERY)
         torch.cuda.reset_peak_memory_stats()
@@ -4334,6 +4624,8 @@ def main(argv=None) -> int:
         "launches_surrogate_paths": on_surrogate_paths("online_chunk"),
         "launches_unstructured_paths": on_unstructured_paths("online_chunk"),
         "launches_options_paths": on_options_paths("online_chunk"),
+        "launches_mesh_paths": {"mesh_slice_per_rank": mesh_paths[
+            "mesh_slice_96x8x8_p16"]["online_banded_launches_per_rank"]},
         "irregular_96": {k: k3_irr_timing[k] for k in (
             "ms", "plain_ms", "plain_ms_runs", "launches", "max_abs_err",
             "bound_ms", "bound_by")},
@@ -4355,7 +4647,11 @@ def main(argv=None) -> int:
         "bound_ms": timing[f"{name}_{tag}"]["bound_ms"],
         "bound_by": timing[f"{name}_{tag}"]["bound_by"],
         "library_ms": timing[f"{name}_{tag}"].get("library_ms"),
-        **({"launches_lstm_stage4_pallas": lstm_path["k1_leg_launches"]}
+        **({"launches_lstm_stage4_pallas": lstm_path["k1_leg_launches"],
+            "launches_mesh_paths": {
+                "mesh_default_pallas_stage1_per_rank": mesh_paths[
+                    "mesh_default_pallas_stage1"][
+                    "fint_matvec_launches_per_rank"]}}
            if name == "fint_matvec" else {}),
         "launches_surrogate_paths": on_surrogate_paths(
             "batched_fint_matvec" if name == "fint_matvec" else name),

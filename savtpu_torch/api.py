@@ -11,6 +11,11 @@
     # or: metrics = sim.run_all()
     sim.solver()             # the ShardedSolver (exchanged / comm-free runs)
     sim.steady()             # the steady displacement (P1, or P2 alone)
+
+Under a device mesh (``device_mesh=parallel.make_device_mesh()``, the
+same calls on every rank) stages 1 and 4 run on every rank, each over its
+block of parts, and stages 2, 3 and 5 on rank 0; every stage ends at a
+barrier, and ``compare`` returns rank 0's metrics on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from .config import Config
 from .pipeline import (
@@ -34,39 +40,61 @@ from .utils import resolve_device
 
 class Simulation:
     def __init__(self, cfg: Optional[Config] = None, device=None,
-                 dtype=None, verbose: bool = True):
+                 dtype=None, verbose: bool = True, device_mesh=None):
         self.cfg = cfg or Config()
         self.verbose = verbose
         self._device = device
         self._dtype = dtype
+        self._mesh = device_mesh
         self._ctx: Optional[StageContext] = None
 
     @property
     def ctx(self) -> StageContext:
         if self._ctx is None:
             self._ctx = build_context(self.cfg, dtype=self._dtype,
-                                      device=self._device)
+                                      device=self._device,
+                                      device_mesh=self._mesh)
         return self._ctx
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this process runs stages 2, 3 and 5 (rank 0 under a
+        mesh)."""
+        return self._mesh is None or self._mesh.get_local_rank() == 0
+
+    def _done(self):
+        """The end of a stage: under a mesh, every rank waits for all."""
+        if self._mesh is not None:
+            dist.barrier(group=self._mesh.get_group())
+        return self
 
     def generate_data(self):
         data_prepare.run(self.cfg, ctx=self.ctx, verbose=self.verbose)
-        return self
+        return self._done()
 
     def extract_shared(self):
-        shared_extraction.run(self.cfg)
-        return self
+        if self.is_root:
+            shared_extraction.run(self.cfg)
+        return self._done()
 
     def train(self):
-        model_training.run(self.cfg, verbose=self.verbose,
-                           device=self._device)
-        return self
+        if self.is_root:
+            model_training.run(self.cfg, verbose=self.verbose,
+                               device=self._device)
+        return self._done()
 
     def run_online(self):
         online_predictor.run(self.cfg, ctx=self.ctx, verbose=self.verbose)
-        return self
+        return self._done()
 
     def compare(self) -> Dict:
-        return plotter.run(self.cfg, verbose=self.verbose)
+        metrics = [plotter.run(self.cfg, verbose=self.verbose)
+                   if self.is_root else None]
+        if self._mesh is not None:
+            group = self._mesh.get_group()
+            dist.broadcast_object_list(
+                metrics, src=dist.get_global_rank(group, 0), group=group)
+        return metrics[0]
 
     def run_all(self) -> Dict:
         return (

@@ -32,6 +32,13 @@ advances itself, and decays the teacher-forcing ratio, a device tensor,
 itself; a replay needs at most a copy of the epoch's draws. On the CPU
 the same epoch function runs eagerly; it is also the reference the
 replayed graph is held to on the card.
+
+``fit_stacked(..., mesh=)`` trains over a device mesh
+(``parallel.make_device_mesh``): each rank trains its contiguous block of
+the P models, which are independent, so no gradient crosses ranks. The
+initial parameters, the split and the shuffle and noise streams are drawn
+for all P models on every rank and then cut to the block, so each model
+sees what it sees unsharded; the history is gathered across ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils import full_precision_products, resolve_device
 from .linear import StackedLinear, fit_linear
@@ -153,8 +161,12 @@ class _Epochs:
 
     def __init__(self, cfg, model, Xtr, Ytr, Xva, Yva, fm, *, bs, steps,
                  n_future, n_windows, n_epochs, chunk, noise, tail=0,
-                 val_bs=None, stochastic=False, ratio0=0.0, draws=None):
+                 val_bs=None, stochastic=False, ratio0=0.0, draws=None,
+                 block=None):
         self.cfg, self.model, self.fm = cfg, model, fm
+        # under a mesh (p0, p1, P): the shuffles and the noise are drawn
+        # for all P models and cut to models p0 .. p1 - 1
+        self.block = block
         self.n_epochs, self.chunk = n_epochs, chunk
         self.Xtr, self.Ytr, self.Xva, self.Yva = Xtr, Ytr, Xva, Yva
         self.bs, self.steps, self.tail, self.val_bs = bs, steps, tail, val_bs
@@ -207,9 +219,12 @@ class _Epochs:
             self._noise_gen = torch.Generator().manual_seed(cfg.seed + 3)
         n = min(self.chunk, self.n_epochs - e0)
         P, n_train = self.perm_buf.shape[1:]
+        n_draw = P if self.block is None else self.block[2]
         perms = torch.stack([
             torch.stack([torch.randperm(n_train, generator=self._perm_gen)
-                         for _ in range(P)]) for _ in range(n)])
+                         for _ in range(n_draw)]) for _ in range(n)])
+        if self.block is not None:
+            perms = perms[:, self.block[0] : self.block[1]]
         lrs = torch.tensor(
             [-(cfg.learning_rate * cfg.decay ** e)
              for e in range(e0, e0 + n)], dtype=torch.float64)
@@ -226,9 +241,14 @@ class _Epochs:
         epoch's shuffle with its "perm" (P, n_train)), else from torch
         generators seeded cfg.seed + 3 (keep = uniform < 1 - dropout)."""
         if self.noise_buf is not None:
-            self.noise_buf.copy_(torch.randn(
-                self.noise_buf.shape, generator=self._noise_gen,
-                dtype=torch.float64).to(self.noise_buf.dtype))
+            shape = tuple(self.noise_buf.shape)
+            if self.block is not None:
+                shape = (self.block[2],) + shape[1:]
+            noise = torch.randn(shape, generator=self._noise_gen,
+                                dtype=torch.float64)
+            if self.block is not None:
+                noise = noise[self.block[0] : self.block[1]]
+            self.noise_buf.copy_(noise.to(self.noise_buf.dtype))
         given = self.draws(e) if self.draws is not None else None
         if given is not None and given.get("perm") is not None:
             self.perm_buf[e - self._e0].copy_(torch.as_tensor(
@@ -526,6 +546,7 @@ def fit_stacked(
     stats: Optional[Dict] = None,
     init_params: Optional[Dict[str, np.ndarray]] = None,
     seqs=None,
+    mesh=None,
 ):
     """Train P independent surrogates at once. Returns (model, hist): the
     :class:`StackedSeq2Seq` on ``device`` (CUDA unless the caller asks for
@@ -552,13 +573,25 @@ def fit_stacked(
     ``replay`` (default: on a CUDA device) runs the epochs as replays of
     one captured CUDA graph; False runs them eagerly. ``stats``, if
     given, receives the capture and training seconds and the counts of
-    epochs and Adam steps."""
+    epochs and Adam steps.
+
+    ``mesh`` (a ``DeviceMesh`` over the ranks, every rank calling with
+    the whole X, Y and feat_mask): the returned model holds this rank's
+    contiguous block of the P models (P a multiple of the ranks) on its
+    device, trained as in the unsharded fit, and the history covers all
+    P, gathered across ranks. ``init_params`` holds all P models."""
     if getattr(cfg, "arch", "lstm") == "linear":
+        if mesh is not None:
+            raise NotImplementedError(
+                "arch='linear' fits on the host in closed form; call "
+                "fit_stacked without a mesh")
         return _fit_stacked_linear(cfg, X, Y, feat_mask, device=device,
                                    log_fn=log_fn, seqs=seqs)
     ep = stacked_epochs(cfg, X, Y, feat_mask, device=device,
-                        init_params=init_params)
+                        init_params=init_params, mesh=mesh)
     hist_arr = _train(ep, replay, log_every, log_fn, stats, "fit_stacked")
+    if mesh is not None:
+        hist_arr = _gather_models(hist_arr, mesh, ep.Xtr.device)
     hist = {}
     for j, k in enumerate(("loss", "r2", "rel")):
         hist[f"train_{k}"] = hist_arr[:, 0, :, j]
@@ -615,13 +648,36 @@ def _fit_stacked_linear(cfg, X, Y, feat_mask, *, device=None, log_fn=print,
     return model, hist
 
 
+def _gather_models(hist_arr: np.ndarray, mesh, dev) -> np.ndarray:
+    """The (E, 2, P_local, 3) history of every rank joined on its model
+    axis."""
+    group = mesh.get_group()
+    t = torch.as_tensor(np.ascontiguousarray(hist_arr)).to(dev)
+    out = [torch.empty_like(t) for _ in range(mesh.size())]
+    dist.all_gather(out, t, group=group)
+    return torch.cat(out, dim=2).cpu().numpy()
+
+
 def stacked_epochs(cfg, X, Y, feat_mask, *, device=None,
-                   init_params: Optional[Dict[str, np.ndarray]] = None):
+                   init_params: Optional[Dict[str, np.ndarray]] = None,
+                   mesh=None):
     """The training state of :func:`fit_stacked` on the device, ready to
     run epochs (:class:`_Epochs`): the split windows, the model, Adam and
-    the shuffle and learning-rate buffers."""
+    the shuffle and learning-rate buffers; under ``mesh`` those of the
+    rank's block of models."""
     full_precision_products()
     dev = resolve_device(device)
+    block = None
+    if mesh is not None:
+        from ..parallel.sharded import mesh_device
+
+        n, r, Pn = mesh.size(), mesh.get_local_rank(), np.shape(X)[0]
+        if Pn % n:
+            raise ValueError(
+                f"mesh has {n} devices; the model count {Pn} must be a "
+                "multiple")
+        dev = mesh_device(mesh)
+        block = (r * Pn // n, (r + 1) * Pn // n, Pn)
     dtype = _DTYPES[cfg.dtype]
     X = np.asarray(X, dtype=np.float64)
     Y = np.asarray(Y, dtype=np.float64)
@@ -640,14 +696,24 @@ def stacked_epochs(cfg, X, Y, feat_mask, *, device=None,
     train_idx = np.stack(
         [rng.choice(G, size=n_train, replace=False) for _ in range(Pn)])
     val_idx = np.stack([np.setdiff1d(np.arange(G), t) for t in train_idx])
+    if block is None:
+        model = _model_for(cfg, Pn, Dmax, dtype, init_params, dev)
+    else:
+        # all P models' initial parameters, then the rank's block
+        p0, p1 = block[:2]
+        full = _model_for(cfg, Pn, Dmax, dtype, init_params, "cpu")
+        model = StackedSeq2Seq.from_arrays(
+            {k: v[p0:p1] for k, v in full.arrays().items()}, dtype=dtype,
+            device=dev)
+        X, Y, fm_np = X[p0:p1], Y[p0:p1], fm_np[p0:p1]
+        train_idx, val_idx = train_idx[p0:p1], val_idx[p0:p1]
     take = lambda A, idx: torch.as_tensor(  # noqa: E731
         np.take_along_axis(A, idx[:, :, None, None], 1), dtype=dtype).to(dev)
     Xtr, Ytr = take(X, train_idx), take(Y, train_idx)
     Xva, Yva = take(X, val_idx), take(Y, val_idx)
     fm = torch.as_tensor(fm_np, dtype=dtype).to(dev)
-    model = _model_for(cfg, Pn, Dmax, dtype, init_params, dev)
     E = int(cfg.epochs)
     noise = float(getattr(cfg, "input_noise", 0.0) or 0.0)
     return _Epochs(cfg, model, Xtr, Ytr, Xva, Yva, fm, bs=bs, steps=steps,
                    n_future=cfg.n_future, n_windows=n_windows, n_epochs=E,
-                   chunk=_chunk(cfg, E), noise=noise)
+                   chunk=_chunk(cfg, E), noise=noise, block=block)

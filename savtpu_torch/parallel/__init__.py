@@ -6,7 +6,7 @@ from .halo import (
     rcm_reorder_maps,
 )
 from .partition import partition_elements
-from .sharded import ShardedProblem, ShardedSolver
+from .sharded import ShardedProblem, ShardedSolver, make_device_mesh
 
 __all__ = [
     "NeighborExchange",
@@ -17,4 +17,5 @@ __all__ = [
     "partition_elements",
     "ShardedProblem",
     "ShardedSolver",
+    "make_device_mesh",
 ]

@@ -29,9 +29,16 @@ hand-written kernel (``ops/online_banded.py``). The generic time loop is
 one step function (``ShardedProblem._step``) run two ways: on a CUDA
 device from captured CUDA graphs of up to ``GRAPH_STEPS`` steps each,
 replayed with no host work inside (the counterpart of the JAX package's
-jitted ``lax.scan``), and on the CPU as an eager Python loop. The JAX
-package's ``shard_map`` device meshes wait for a later slice (ROADMAP
-A13). Its face-plane
+jitted ``lax.scan``), and on the CPU as an eager Python loop.
+
+The JAX package's ``shard_map`` device mesh is ``torch.distributed`` here,
+one process per rank (NCCL on CUDA cards, gloo on the CPU):
+``make_device_mesh`` gives a one-dimensional ``DeviceMesh`` over the
+launched ranks, and ``ShardedSolver(sp, mesh)`` gives each rank its
+contiguous block of parts (:meth:`ShardedProblem.mesh_block`) whose
+exchanges cross ranks through :class:`MeshComm`: the psum as a local owner
+sum and an ``all_reduce``, the permute and grid exchanges as
+``batch_isend_irecv`` rounds. The JAX package's face-plane
 access to shared DOFs in stencil mode (which keeps scatters out of an
 XLA scan on the TPU) is not carried over: every mode here touches shared
 DOFs through the same gather and scatter, which give the same values.
@@ -52,12 +59,14 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import os
 import weakref
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..mesh.generator import _CORNERS, _HEX_TO_TETS
 from ..ops import banded_scan, dense_step, kernels
@@ -93,6 +102,129 @@ HOST_TRAJ_BUDGET_BYTES = 1 << 28
 
 # the stepper's CUDA graphs: at most this many steps per captured chunk
 GRAPH_STEPS = 100
+
+# the device mesh's one axis (the JAX package names it "shards")
+AXIS = "parts"
+
+
+def make_device_mesh(n_devices: Optional[int] = None,
+                     device_type: str = "cuda"):
+    """A one-dimensional ``DeviceMesh`` (axis ``"parts"``) over the
+    launched ranks, one process per rank as ``torchrun`` or
+    ``torch.multiprocessing.spawn`` start them: the port of the JAX
+    package's ``make_device_mesh``. CUDA unless the caller asks for the
+    CPU; on CUDA each rank first takes the card ``LOCAL_RANK`` (else its
+    rank modulo the cards), so ``utils.resolve_device`` gives each rank
+    its own card. Where the caller has not initialised the process group,
+    it is initialised from the environment (NCCL on CUDA, gloo on the
+    CPU). ``n_devices`` defaults to the world size, and any other value
+    raises: the mesh spans every rank. Under NCCL the stepper captures
+    its collectives into CUDA graphs, which the communicator waits for
+    when it is destroyed: drop the solvers and stage contexts (and
+    collect them) before ``destroy_process_group``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev_type = torch.device(device_type).type
+    if dev_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device_type='cpu' for a "
+                "gloo mesh on the CPU")
+        local = os.environ.get("LOCAL_RANK")
+        if local is None:
+            rank = (dist.get_rank() if dist.is_initialized()
+                    else int(os.environ.get("RANK", 0)))
+            local = rank % torch.cuda.device_count()
+        torch.cuda.set_device(int(local))
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev_type == "cuda" else "gloo")
+    world = dist.get_world_size()
+    if n_devices is not None and int(n_devices) != world:
+        raise ValueError(
+            f"make_device_mesh: {n_devices} devices asked for, but {world} "
+            "ranks were launched; the mesh spans every rank")
+    return init_device_mesh(dev_type, (world,), mesh_dim_names=(AXIS,))
+
+
+def mesh_device(mesh) -> torch.device:
+    """The rank's device of ``mesh``: its current card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+class MeshComm:
+    """One rank's side of a device mesh: its block ``p0 .. p1 - 1`` of the
+    ``n_parts`` parts, and the collectives of the exchanges over the
+    mesh's process group. ``owner_count`` (SD,) counts every global shared
+    DOF's owners on all ranks. ``nx_peers`` and ``grid_peers`` hold, for
+    each permute round and each grid pass (x+, x-, y+, y-, z+, z-), the
+    part (= rank, one part per rank) this rank sends to and the one it
+    receives from, -1 where it has none: the JAX package's
+    ``ppermute`` pairs seen from one rank."""
+
+    def __init__(self, mesh, n_parts, p0, p1, device, owner_count,
+                 nx_peers=None, grid_peers=None):
+        self.group = mesh.get_group()
+        self.rank = mesh.get_local_rank()
+        self.world = mesh.size()
+        self.n_parts, self.p0, self.p1 = n_parts, p0, p1
+        self.device = device
+        self.owner_count = owner_count
+        self.nx_peers = nx_peers
+        self.grid_peers = grid_peers
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The psum: ``t`` summed over the ranks, in place."""
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def permute(self, buf: torch.Tensor, peers) -> torch.Tensor:
+        """``ppermute``: send ``buf`` to ``peers[0]`` and return what
+        ``peers[1]`` sent (zeros where either is -1), one
+        ``batch_isend_irecv``."""
+        send_to, recv_from = peers
+        recv = torch.zeros_like(buf)
+        ops = []
+        if send_to >= 0:
+            ops.append(dist.P2POp(dist.isend, buf.contiguous(),
+                                  dist.get_global_rank(self.group, send_to),
+                                  self.group))
+        if recv_from >= 0:
+            ops.append(dist.P2POp(dist.irecv, recv,
+                                  dist.get_global_rank(self.group, recv_from),
+                                  self.group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return recv
+
+    def warm(self) -> None:
+        """One collective on the rank's device, so the communicator exists
+        before a CUDA graph captures collectives."""
+        self.all_reduce(torch.zeros((1,), device=self.device))
+
+    def gather(self, x):
+        """Every rank's block of ``x`` (its parts on the leading axis)
+        joined into the global part axis, on every rank; NumPy in, NumPy
+        out."""
+        is_np = not torch.is_tensor(x)
+        t = torch.as_tensor(np.ascontiguousarray(x) if is_np else x)
+        t = t.to(self.device).contiguous()
+        out = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(out, t, group=self.group)
+        g = torch.cat(out)
+        return g.cpu().numpy() if is_np else g
+
+    def block(self, x):
+        """This rank's block of a global stacked ``x`` (parts on the
+        leading axis); a tensor goes to the rank's device."""
+        if torch.is_tensor(x):
+            return x[self.p0 : self.p1].to(self.device)
+        return np.asarray(x)[self.p0 : self.p1]
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
 
 
 def _build_banded(npn, DLp, edofs, Ke, chunk_quantum=256):
@@ -320,6 +452,29 @@ def _grid_layout(box, npn):
     return (px, py, pz), perm, slot_of_part.astype(np.int64), wrap
 
 
+def _grid_peers(perm, pdims, wrap, part):
+    """The grid exchange's six ``ppermute`` pair lists (x+, x-, y+, y-,
+    z+, z-: sender part -> box neighbour, the JAX package's
+    ``grid_pairs``, the y lists a ring where ``wrap``) seen from ``part``:
+    for each, (the part it sends to, the part it receives from), -1 where
+    none."""
+    P3 = np.asarray(perm).reshape(pdims)
+    ring = np.roll(P3, -1, axis=1), np.roll(P3, 1, axis=1)
+    lists = (
+        (P3[:-1], P3[1:]), (P3[1:], P3[:-1]),
+        (P3, ring[0]) if wrap else (P3[:, :-1], P3[:, 1:]),
+        (P3, ring[1]) if wrap else (P3[:, 1:], P3[:, :-1]),
+        (P3[:, :, :-1], P3[:, :, 1:]), (P3[:, :, 1:], P3[:, :, :-1]),
+    )
+    out = []
+    for src, dst in lists:
+        src, dst = src.ravel(), dst.ravel()
+        to, frm = dst[src == part], src[dst == part]
+        out.append((int(to[0]) if len(to) else -1,
+                    int(frm[0]) if len(frm) else -1))
+    return out
+
+
 def _owner_table(sgi: np.ndarray, smask: np.ndarray, SD: int) -> np.ndarray:
     """(SD, K) flat (part * S3 + slot) indices of every owner of each
     global shared DOF, in increasing flat order, padded with P * S3 (an
@@ -427,6 +582,12 @@ class ShardedProblem:
     nx_unpack: Optional[torch.Tensor] = None   # (P, R, B) add-into DOF ids
     nx_mask: Optional[torch.Tensor] = None     # (P, R, B) 1 on real slots
     nx_src: Optional[torch.Tensor] = None      # (P, R) partner id, -1 idle
+    # under a device mesh (ShardedSolver(sp, mesh)): the rank's side of
+    # the mesh, and the global id of its first part; the per-part fields
+    # then hold the rank's block and ``owners`` points into it
+    comm: Optional[MeshComm] = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
+    part0: int = 0
     # the stepper's cached graph chunks (_StepChunk), by flags and shapes
     _graphs: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
@@ -716,6 +877,60 @@ class ShardedProblem:
             **extra,
         )
 
+    # per-part fields (leading part axis): tensors, then host arrays
+    _PART_TENSORS = (
+        "dof_mask", "bc_mask", "lM", "F_pre", "sld", "sgi", "smask",
+        "denseK", "band_Kd", "band_Kl", "edofs", "nh_G", "nh_detJw",
+        "nh_gather", "nhs_Gc", "nhs_dJwc", "ell_blocks", "ell_cols", "Ke",
+        "nx_pack", "nx_unpack", "nx_mask", "nx_src")
+    _PART_ARRAYS = ("local_dofs_global", "nhw_w0", "nhw_idx")
+    # global tensors every rank keeps whole
+    _GLOBAL_TENSORS = ("nhs_G", "nhs_dJw", "grid_perm", "grid_inv")
+
+    def mesh_block(self, mesh, p0: int, p1: int) -> "ShardedProblem":
+        """The rank's local view under ``mesh`` (the JAX package's
+        ``_local_view`` inside ``shard_map``): every per-part field sliced
+        to the parts p0 .. p1 - 1 and moved to the rank's device; SD, dt
+        and the other scalars, the partition maps and the global tensors
+        stay whole. The owner table is re-indexed to the block: each row
+        keeps its local owners in their order, then pads (a slot another
+        rank holds adds nothing here; ``MeshComm.all_reduce`` adds it)."""
+        dev = mesh_device(mesh)
+        P, S3 = self.n_parts, self.sld.shape[1]
+        own = self.owners.cpu().numpy()
+        real = own < P * S3
+        mine = real & (own // S3 >= p0) & (own // S3 < p1)
+        order = np.argsort(~mine, axis=1, kind="stable")
+        local = np.where(mine, own - p0 * S3, (p1 - p0) * S3)
+        local = np.take_along_axis(local, order, axis=1)
+        local = local[:, : max(int(mine.sum(axis=1).max(initial=1)), 1)]
+        nx_peers = grid_peers = None
+        if self.nx_src is not None:
+            # one part per rank: round r's partner of part q is nx_src[q, r]
+            src = self.nx_src.cpu().numpy()
+            nx_peers = []
+            for r in range(src.shape[1]):
+                to = np.flatnonzero(src[:, r] == p0)
+                nx_peers.append((int(to[0]) if len(to) else -1,
+                                 int(src[p0, r])))
+        if self.grid_perm is not None:
+            grid_peers = _grid_peers(self.grid_perm.cpu().numpy(),
+                                     self.grid_pdims, self.grid_wrap, p0)
+        comm = MeshComm(
+            mesh, P, p0, p1, dev,
+            torch.as_tensor(real.sum(axis=1)).to(dev),
+            nx_peers=nx_peers, grid_peers=grid_peers)
+        kw = {k: getattr(self, k)[p0:p1].to(dev)
+              for k in self._PART_TENSORS if getattr(self, k) is not None}
+        kw.update({k: getattr(self, k)[p0:p1]
+                   for k in self._PART_ARRAYS if getattr(self, k) is not None})
+        kw.update({k: getattr(self, k).to(dev)
+                   for k in self._GLOBAL_TENSORS
+                   if getattr(self, k) is not None})
+        return dataclasses.replace(
+            self, n_parts=p1 - p0, owners=torch.as_tensor(local).to(dev),
+            comm=comm, part0=p0, **kw)
+
     # ------------------------------------------------------------------
     def localize(self, vec) -> torch.Tensor:
         """(ndof,) global vector -> (P, DL) stacked local vectors."""
@@ -878,6 +1093,8 @@ class ShardedProblem:
         shared DOF receives the sum of all owners' contributions."""
         vals = torch.gather(F_int, 1, self.sld) * self.smask
         tot = self._shared_sum(vals)
+        if self.comm is not None:
+            tot = self.comm.all_reduce(tot)
         return F_int.scatter(1, self.sld, tot[self.sgi])
 
     def _exchange_grid(self, F_int: torch.Tensor) -> torch.Tensor:
@@ -916,6 +1133,32 @@ class ShardedProblem:
         flat = v.reshape(P, 3 * L)[self.grid_inv]
         return torch.cat([flat, F_int[:, 3 * L :]], dim=1)
 
+    def _exchange_grid_mesh(self, F_int: torch.Tensor) -> torch.Tensor:
+        """The grid exchange across ranks (one part per rank; the JAX
+        package's ``_exchange_grid_mesh``): each axis pass sends the high
+        face plane to the +axis box neighbour and the low plane to the
+        -axis one, and each rank adds what arrives, the tube's seam pair
+        riding the wrapped y ring. A plane sum is the same two addends as
+        the emulated pass's, so the same bits; a rank with no neighbour
+        in a direction adds zeros."""
+        NX, NY, NZ = self.grid_ndims
+        px, py, pz = self.grid_pdims
+        L = NX * NY * NZ
+        Pl = F_int.shape[0]
+        v = F_int[:, : 3 * L].reshape(Pl, NX, NY, NZ, 3).clone()
+        peers = self.comm.grid_peers
+        for axis, (n, size, wrapped) in enumerate((
+                (px, NX, False), (py, NY, self.grid_wrap), (pz, NZ, False))):
+            if n == 1 and not wrapped:
+                continue
+            lo = v.select(axis + 1, 0).clone()
+            hi = v.select(axis + 1, size - 1).clone()
+            recv_lo = self.comm.permute(hi, peers[2 * axis])
+            recv_hi = self.comm.permute(lo, peers[2 * axis + 1])
+            v.select(axis + 1, 0).copy_(lo + recv_lo)
+            v.select(axis + 1, size - 1).copy_(hi + recv_hi)
+        return torch.cat([v.reshape(Pl, 3 * L), F_int[:, 3 * L :]], dim=1)
+
     def _emulated_permute(self, buf: torch.Tensor, r: int) -> torch.Tensor:
         """The JAX package's single-device stand-in for ``ppermute`` on
         the part axis: part p receives round r's buffer from its partner,
@@ -937,13 +1180,18 @@ class ShardedProblem:
             m = self.nx_mask[:, r]
             buf = torch.gather(F_int, 1, self.nx_pack[:, r]) * m
             ui = self.nx_unpack[:, r]
-            recv = self._emulated_permute(buf, r) * m
+            if self.comm is not None:
+                recv = self.comm.permute(buf, self.comm.nx_peers[r]) * m
+            else:
+                recv = self._emulated_permute(buf, r) * m
             out = out.scatter(1, ui, torch.gather(out, 1, ui) + recv)
         return out
 
     def _sync(self, F_int: torch.Tensor) -> torch.Tensor:
         """The exchanged step's halo exchange, by ``exchange_mode``."""
         if self.exchange_mode == "grid":
+            if self.comm is not None:
+                return self._exchange_grid_mesh(F_int)
             return self._exchange_grid(F_int)
         if self.exchange_mode == "permute":
             return self._exchange_permute(F_int)
@@ -1383,6 +1631,11 @@ class _StepChunk:
             kernels.load("dense_step")
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        if sp.comm is not None:
+            # the communicator exists before the capture records a
+            # collective (each rank captures the same chunks in order)
+            with torch.cuda.stream(stream):
+                sp.comm.warm()
         if sp.fint_mode != "pallas":
             with torch.cuda.stream(stream):
                 sp._step(self.state, None if self.preds is None
@@ -1396,7 +1649,12 @@ class _StepChunk:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph, stream=stream):
+            # under a mesh the process group's watchdog thread polls its
+            # events during the capture: only this thread's calls are
+            # checked
+            mode = "global" if sp.comm is None else "thread_local"
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode=mode):
                 self._body()
         finally:
             if gc_was_on:
@@ -1442,10 +1700,63 @@ def graph_chunks(num_steps: int, save_every: int, max_steps: int):
 
 
 class ShardedSolver:
-    """Runs a ShardedProblem on its device (all parts stacked)."""
+    """Runs a ShardedProblem: all parts stacked on its device, or under a
+    device mesh (``make_device_mesh``) each rank its block of parts.
 
-    def __init__(self, sp: ShardedProblem):
+    Under ``mesh`` rank r of n holds the contiguous parts r P/n .. (r+1)
+    P/n - 1, as ``shard_map`` splits the part axis: ``self.sp`` is that
+    block (:meth:`ShardedProblem.mesh_block`) on the rank's device, and
+    :meth:`run` and :meth:`run_streamed` take and return the block's
+    tensors (:meth:`block` cuts a global stacked tensor to it,
+    :meth:`gather` joins the ranks' blocks). The exchanged steps cross
+    ranks through ``torch.distributed``; K2 and K4 are refused under a
+    mesh, as in the JAX package, while K1 and K3 run on each rank's
+    parts."""
+
+    def __init__(self, sp: ShardedProblem, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            n_dev = mesh.size()
+            if sp.n_parts % n_dev:
+                raise ValueError(
+                    f"mesh has {n_dev} devices; the part count "
+                    f"{sp.n_parts} must be a multiple (several parts per "
+                    f"device keep the local dense blocks small)"
+                )
+            if sp.exchange_mode == "permute" and sp.n_parts != n_dev:
+                raise ValueError(
+                    "exchange_mode='permute' permutes on the device axis "
+                    f"and needs one part per device ({sp.n_parts} parts, "
+                    f"{n_dev} devices); use exchange_mode='psum' for "
+                    "multiple parts per device"
+                )
+            if sp.exchange_mode == "grid" and sp.n_parts != n_dev:
+                raise ValueError(
+                    "exchange_mode='grid' under a device mesh ppermutes "
+                    "face planes between box-neighbor devices and needs "
+                    f"one part per device ({sp.n_parts} parts, {n_dev} "
+                    "devices); use exchange_mode='psum' for multiple "
+                    "parts per device"
+                )
+            per = sp.n_parts // n_dev
+            r = mesh.get_local_rank()
+            sp = sp.mesh_block(mesh, r * per, (r + 1) * per)
         self.sp = sp
+
+    @property
+    def parts(self) -> range:
+        """The global ids of the parts this solver runs."""
+        return range(self.sp.part0, self.sp.part0 + self.sp.n_parts)
+
+    def block(self, x):
+        """This rank's block of a global stacked ``x`` (itself without a
+        mesh)."""
+        return x if self.sp.comm is None else self.sp.comm.block(x)
+
+    def gather(self, x):
+        """The ranks' blocks of ``x`` joined on the global part axis, on
+        every rank (itself without a mesh)."""
+        return x if self.sp.comm is None else self.sp.comm.gather(x)
 
     def _pallas_scan_ok(self, sync, record, save_every, blend=None) -> bool:
         """Gate of K2 (ops/dense_step.scan_comm_free), the JAX package's
@@ -1461,7 +1772,8 @@ class ShardedSolver:
         still beats the exchanged one (PERF.md)."""
         sp = self.sp
         return (
-            not sync
+            self.mesh is None
+            and not sync
             and blend is None
             and sp.fint_mode == "pallas"
             and not sp.compensated
@@ -1477,7 +1789,8 @@ class ShardedSolver:
         (nc*Bk,) vectors) must fit in a block's shared memory; the band
         streams from global memory."""
         sp = self.sp
-        if (sync or preds is not None or blend is not None
+        if (self.mesh is not None or sync or preds is not None
+                or blend is not None
                 or sp.fint_mode != "banded" or sp.compensated
                 or record != "none"):
             return False
@@ -1536,14 +1849,17 @@ class ShardedSolver:
         guard a remote worker's watchdog; that is not carried over. Chunk
         boundaries matter at round-off level in compensated mode, where
         each chunk re-enters with the lo word folded into d — which is why
-        stage 1 and the stage-4 warm-up share their first boundaries."""
+        stage 1 and the stage-4 warm-up share their first boundaries.
+        Under a mesh the plan is the whole problem's, so every rank cuts
+        its block where an emulated run cuts."""
         if num_steps % save_every:
             raise ValueError("num_steps must be divisible by save_every")
         sp = self.sp
         adaptive = chunk_steps is None
         if adaptive:
             itemsize = torch.finfo(sp.dtype).bits // 8
-            row_bytes = sp.n_parts * sp.DL * itemsize
+            n_all = sp.n_parts if sp.comm is None else sp.comm.n_parts
+            row_bytes = n_all * sp.DL * itemsize
             rows = max(1, int(HOST_TRAJ_BUDGET_BYTES // max(row_bytes, 1)))
             chunk_steps = min(num_steps, rows * save_every, MAX_CHUNK_STEPS)
         chunk_steps -= chunk_steps % save_every

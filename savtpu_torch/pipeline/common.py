@@ -1,5 +1,12 @@
 """Shared stage context: mesh -> assembly -> partition -> sharded problem
-(port of ``savtpu/pipeline/common.py``)."""
+(port of ``savtpu/pipeline/common.py``).
+
+Under a device mesh (``build_context(..., device_mesh=make_device_mesh())``
+on every rank) each rank assembles and partitions the whole problem on the
+host, as the JAX package's single controller does (the setup is
+deterministic), and its solver holds the rank's block of parts on the
+rank's device. The stages then write the per-part artifacts of their own
+parts, and rank 0 alone the global ones and the run log."""
 
 from __future__ import annotations
 
@@ -8,6 +15,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..io.artifacts import ArtifactStore
@@ -15,7 +23,7 @@ from ..ops.material import NeoHookean
 from ..mesh import dirichlet_nodes
 from ..parallel.halo import PartitionMaps, build_partition_maps
 from ..parallel.partition import partition_elements
-from ..parallel.sharded import ShardedProblem, ShardedSolver
+from ..parallel.sharded import ShardedProblem, ShardedSolver, mesh_device
 from ..solvers.problem import AssembledProblem, setup_problem
 from ..utils import full_precision_products, resolve_device, stage_log
 
@@ -36,6 +44,40 @@ class StageContext:
     # authoritative for the trajectory writers
     artifact_local_nodes: "list | None" = None  # per-rank node ids, CSV order
     artifact_local_perm: "list | None" = None   # per-rank perm cur->CSV
+
+    @property
+    def comm(self):
+        """The rank's side of the device mesh (None when emulated)."""
+        return self.sp.comm
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this process writes the global artifacts and the log:
+        always when emulated, rank 0 under a mesh."""
+        return self.comm is None or self.comm.rank == 0
+
+    @property
+    def parts(self) -> range:
+        """The global ids of the parts this process runs."""
+        return self.solver.parts
+
+    def log(self, event: str, **fields) -> None:
+        """A run-log record, written by the root process only."""
+        if self.is_root:
+            stage_log(self.cfg).log(event, **fields)
+
+    def barrier(self) -> None:
+        """Wait for every rank (nothing to wait for when emulated)."""
+        if self.comm is not None:
+            self.comm.barrier()
+
+    def rank_values(self, value: float) -> list:
+        """``value`` of every rank, in rank order ([value] when
+        emulated)."""
+        if self.comm is None:
+            return [value]
+        t = torch.tensor([float(value)], dtype=torch.float64)
+        return [float(v) for v in self.comm.gather(t.numpy())]
 
 
 def state_dtype(cfg: Config, dtype=None) -> torch.dtype:
@@ -79,13 +121,23 @@ def _load_artifact_layout(store: ArtifactStore, maps: PartitionMaps):
     return shared, local
 
 
-def build_context(cfg: Config, mesh=None, dtype=None,
-                  device=None) -> StageContext:
+def build_context(cfg: Config, mesh=None, dtype=None, device=None,
+                  device_mesh=None) -> StageContext:
     """Assemble, partition and pack the problem on ``device`` (CUDA unless
     the caller asks for the CPU). The state dtype is ``dtype`` or
     cfg.solver.dtype; ``compensated=None`` turns the double-word state on
-    for float32."""
+    for float32. ``device_mesh`` (``parallel.make_device_mesh``, called
+    on every rank): the problem is packed on the host and the solver takes
+    the rank's block of parts onto the rank's device, which must be of
+    ``device``'s type."""
     dev = resolve_device(device)
+    if device_mesh is not None:
+        mdev = mesh_device(device_mesh)
+        if mdev.type != dev.type:
+            raise ValueError(
+                f"the device mesh is on {mdev.type}, the run asks for "
+                f"{dev.type}")
+        dev = mdev
     dtype = state_dtype(cfg, dtype)
     full_precision_products()
     if cfg.solver.deg != 1:
@@ -141,8 +193,10 @@ def build_context(cfg: Config, mesh=None, dtype=None,
         prob, maps, fint_mode=cfg.solver.fint_mode, dtype=dtype,
         exchange_mode=cfg.solver.exchange_mode, compensated=compensated,
         material=material, nh_stencil=cfg.solver.nh_stencil,
-        shared_order=shared_order, device=dev,
+        shared_order=shared_order,
+        device=dev if device_mesh is None else "cpu",
     )
+    solver = ShardedSolver(sp, device_mesh)
     mark("device_pack_s")
     # banded mode RCM-reorders the local layout and the box paths (grid,
     # stencil, the Neo-Hookean stencil) lex-reorder it; sp.maps is
@@ -162,7 +216,15 @@ def build_context(cfg: Config, mesh=None, dtype=None,
                 ))
                 differs = True
         art_perm = perms if differs else None
-    stage_log(cfg).log(
+    ctx = StageContext(
+        cfg, prob, maps, solver.sp, solver, store, dev,
+        artifact_local_nodes=art_local, artifact_local_perm=art_perm,
+    )
+    mesh_info = {}
+    if device_mesh is not None:
+        mesh_info = dict(world=device_mesh.size(),
+                         backend=str(dist.get_backend(ctx.comm.group)))
+    ctx.log(
         "setup_breakdown",
         n_parts=cfg.partition.n_parts,
         elements=len(prob.mesh.tetra),
@@ -174,16 +236,20 @@ def build_context(cfg: Config, mesh=None, dtype=None,
             list(sp.nhs_dims) if sp.nhs_dims is not None else None
         ),
         device=str(dev),
+        **mesh_info,
         **tmarks,
     )
-    return StageContext(
-        cfg, prob, maps, sp, ShardedSolver(sp), store, dev,
-        artifact_local_nodes=art_local, artifact_local_perm=art_perm,
-    )
+    # no rank writes the labels (stage 1, 4) before every rank has read
+    # them above
+    ctx.barrier()
+    return ctx
 
 
 def save_partition_labels(ctx: StageContext) -> None:
-    """Rank-wise node/element/shared CSV labels."""
+    """Rank-wise node/element/shared CSV labels (global artifacts: the
+    root process writes them)."""
+    if not ctx.is_root:
+        return
     maps, store = ctx.maps, ctx.store
     local = ctx.artifact_local_nodes or maps.local_nodes
     for r in range(maps.n_parts):
@@ -194,10 +260,11 @@ def save_partition_labels(ctx: StageContext) -> None:
 
 
 def rank_trajectory(ctx: StageContext, traj, r: int) -> np.ndarray:
-    """(P, T, DL) stacked trajectory -> reference layout (3*n_local, T),
-    rows permuted to the artifact node order when one was adopted."""
+    """Part r's rows of the (P, T, DL) stacked trajectory (under a mesh,
+    the rank's block, which holds part r) -> reference layout (3*n_local,
+    T), rows permuted to the artifact node order when one was adopted."""
     n_real = 3 * len(ctx.maps.local_nodes[r])
-    rows = np.asarray(traj[r][:, :n_real])
+    rows = np.asarray(traj[r - ctx.sp.part0][:, :n_real])
     perm = (
         ctx.artifact_local_perm[r]
         if ctx.artifact_local_perm is not None else None

@@ -13,7 +13,10 @@ and recorded rows every that many steps under the store's
 ``Checkpoints/stage1``; a killed run called again resumes there (unless
 ``--no-resume``) and gives the same bits. The checkpoint is dropped once
 the artifacts are complete. Runs on CUDA unless ``--device`` says
-otherwise."""
+otherwise. Under a device mesh (a context from ``build_context(...,
+device_mesh=...)``, on every rank) each rank runs its block of parts and
+writes their displacement histories; rank 0 writes the labels, the steady
+solve and the log."""
 
 from __future__ import annotations
 
@@ -77,7 +80,9 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     prob, sp, solver, store = ctx.prob, ctx.sp, ctx.solver, ctx.store
 
     save_partition_labels(ctx)
-    write_steady(cfg, prob, store, ctx.device)
+    if ctx.is_root:
+        write_steady(cfg, prob, store, ctx.device)
+    verbose = verbose and ctx.is_root
 
     num_steps = cfg.solver.num_steps
     save_every = cfg.solver.save_every
@@ -114,7 +119,11 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     if verbose:
         print(f"[data_prepare] {num_steps} steps in {elapsed:.2f}s "
               f"({num_steps / elapsed:.0f} steps/s)")
-    stage_log(cfg).log(
+    mesh_info = {}
+    if ctx.comm is not None:
+        mesh_info = dict(world=ctx.comm.world,
+                         rank_seconds=ctx.rank_values(round(elapsed, 3)))
+    ctx.log(
         "stage1_solve",
         steps=num_steps,
         seconds=round(elapsed, 3),
@@ -128,13 +137,16 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         save_every=save_every,
         dt=prob.dt,
         device=str(ctx.device),
+        **mesh_info,
     )
-    for r in range(sp.n_parts):
+    for r in ctx.parts:
         save_displacement(store.dynamics_h5(r), rank_trajectory(ctx, traj, r))
     if ckpt_every:
         # the artifacts are complete: drop the mid-run checkpoint
         del traj
-        shutil.rmtree(store.ckpt_dir("stage1"), ignore_errors=True)
+        ctx.barrier()
+        if ctx.is_root:
+            shutil.rmtree(store.ckpt_dir("stage1"), ignore_errors=True)
     return ctx
 
 

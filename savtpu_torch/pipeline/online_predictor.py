@@ -40,6 +40,16 @@ checkpoint of another run (its fingerprint: steps, stride, parts, layout,
 warm-up, block, surrogate arch and history dtype) is ignored. The
 checkpoint goes once the artifacts are written.
 
+Under a device mesh (a context from ``build_context(..., device_mesh=)``
+on every rank; the JAX package's fused block group under ``shard_map``)
+each rank holds its parts' surrogates, history window and expfit feed,
+predicts and steps its block (K3 on its parts), and writes its parts'
+``modeled_h5`` files; the consensus is a local owner sum, an
+``all_reduce`` and a division by the global owner count (the once-per-block
+psum), the anchor's step exchanges across ranks, and the checks that
+decide the path read every rank's model sidecar, so all ranks take the
+same one.
+
     python -m savtpu_torch.pipeline.online_predictor [--config cfg.json]
         [--steps N] [--ckpt-every N] [--[no-]resume] [--device cpu]
 """
@@ -68,7 +78,7 @@ from ..models.linear import StackedLinear
 from ..models.lstm import StackedSeq2Seq
 from ..models.modal import from_modal, to_modal
 from ..models.predictor import phase_interleaved_predict_stacked
-from ..utils import stage_log, synchronize
+from ..utils import synchronize
 from ..utils.checkpoint import TrajStore, restore_carry
 from ..utils.offload import fetch_into
 from .common import (
@@ -141,16 +151,18 @@ def _check_scaling(cfg: Config, store, r: int, meta: Dict, modal,
             meta_min if meta_min.ndim else float(meta_min))
 
 
-def load_rank_models(ctx: StageContext):
+def load_rank_models(ctx: StageContext, parts=None, params: bool = True):
     """Per-rank surrogates from the stage-3 artifacts (params + JSON
-    sidecar). The scaling constants of an LSTM, a ridge map or a hybrid's
-    residual LSTM are recomputed from the stored trace and checked
-    against the sidecar. Where the config asks for ``arch="expfit"`` and
-    the artifacts are hybrid, only the hybrid's expfit base is kept (the
-    JAX package's arch downgrade)."""
+    sidecar) of ``parts`` (default: the context's). The scaling constants
+    of an LSTM, a ridge map or a hybrid's residual LSTM are recomputed
+    from the stored trace and checked against the sidecar. Where the
+    config asks for ``arch="expfit"`` and the artifacts are hybrid, only
+    the hybrid's expfit base is kept (the JAX package's arch downgrade).
+    ``params=False`` reads the sidecars alone: the models' metadata, with
+    empty params and no scaling check."""
     sur = ctx.cfg.surrogate
     models = []
-    for r in range(ctx.sp.n_parts):
+    for r in (ctx.parts if parts is None else parts):
         mf = ctx.store.model_file(r)
         if not mf.exists():
             raise FileNotFoundError(
@@ -167,8 +179,15 @@ def load_rank_models(ctx: StageContext):
                 np.asarray(meta["modal_mean"], dtype=np.float64),
                 np.asarray(meta["modal_basis"], dtype=np.float64),
             )
-        params = load_params(mf)
         size = int(meta["input_size"])
+        if not params:
+            if arch == "hybrid" and sur.arch == "expfit":
+                meta = {**meta, "arch": "expfit"}
+            ens = int(meta.get("ensemble", 1) or 1) if arch in (
+                "lstm", "linear") else 1
+            models.append(RankModel({}, size, modal, meta, ens=ens))
+            continue
+        params = load_params(mf)
         if arch == "expfit":
             m = RankModel(params, size, modal, meta)
         elif arch == "hybrid" and sur.arch == "expfit":
@@ -212,7 +231,9 @@ def prediction_consensus(preds: torch.Tensor, sp) -> torch.Tensor:
     """Average every owner rank's prediction of each duplicated shared DOF
     (SurrogateConfig.pred_consensus). preds (P, T, 3*S_max) -> same shape
     with all owners of a global shared DOF holding the same mean value.
-    Owner contributions are added in (part, slot) order."""
+    Owner contributions are added in (part, slot) order; under a mesh each
+    rank sums its block's, the sums are all-reduced and divided by the
+    global owner count."""
     P, T, S3 = preds.shape
     pr = (preds * sp.smask[:, None, :]).permute(1, 0, 2).reshape(T, P * S3)
     pr = torch.cat([pr, pr.new_zeros((T, 1))], dim=1)
@@ -220,7 +241,12 @@ def prediction_consensus(preds: torch.Tensor, sp) -> torch.Tensor:
     num = pr.new_zeros((T, sp.SD))
     for k in range(g.shape[2]):
         num = num + g[:, :, k]
-    cnt = torch.clamp((sp.owners < P * S3).sum(dim=1), min=1).to(preds.dtype)
+    if sp.comm is None:
+        cnt = (sp.owners < P * S3).sum(dim=1)
+    else:
+        num = sp.comm.all_reduce(num)
+        cnt = sp.comm.owner_count
+    cnt = torch.clamp(cnt, min=1).to(preds.dtype)
     avg = num / cnt
     out = avg[:, sp.sgi.reshape(-1)].reshape(T, P, S3)
     return out.permute(1, 0, 2)
@@ -427,23 +453,29 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     sur = cfg.surrogate
     save_partition_labels(ctx)
     models = load_rank_models(ctx)
+    # the path's checks see every part's model (under a mesh, from the
+    # sidecars), so all ranks decide alike
+    every = models if ctx.comm is None else load_rank_models(
+        ctx, range(ctx.comm.n_parts), params=False)
+    verbose = verbose and ctx.is_root
 
     num_steps = cfg.solver.num_steps
     # runs shorter than the warm-up are all synchronized
     n_sync = min(sur.i_cri + 1, num_steps)
     block = sur.block_size
     P = sp.n_parts
+    P_all = P if ctx.comm is None else ctx.comm.n_parts
     S3 = sp.sld.shape[1]
     sdt = sp.dtype
     fdt = _SUR_DTYPES[sur.dtype]
     hdt = _SUR_DTYPES[sur.hist_dtype or sur.dtype]
     W = sur.n_past * sur.filter_size
-    archs = {m.arch for m in models}
+    archs = {m.arch for m in every}
     if len(archs) > 1:
         raise ValueError(f"mixed surrogate arches across ranks: {archs}")
     arch = archs.pop() if archs else "lstm"
     hybrid_on = arch == "hybrid"
-    ens_set = {m.ens for m in models}
+    ens_set = {m.ens for m in every}
     if len(ens_set) > 1:
         raise ValueError(f"mixed ensemble sizes across ranks: {ens_set}")
     ens = ens_set.pop() if ens_set else 1
@@ -458,17 +490,17 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
             f"steps in blocks of {block} ({P} parts, device={dev})"
         )
 
-    modal_on = P > 0 and all(m.modal is not None for m in models)
-    if any(m.modal is not None for m in models) and not modal_on:
+    modal_on = P > 0 and all(m.modal is not None for m in every)
+    if any(m.modal is not None for m in every) and not modal_on:
         raise ValueError("mixed modal and raw-channel surrogates across ranks")
-    stacked_ok = _stacked_ok(models, arch, modal_on, S3)
+    stacked_ok = _stacked_ok(every, arch, modal_on, S3)
     if arch in ("expfit", "hybrid") and not stacked_ok:
         raise ValueError(
             f"arch={arch!r} requires the stacked online path (uniform "
             "modal_dim across ranks)")
     fmask_np = np.zeros((P, S3), dtype=np.float32)
     for r in range(P):
-        fmask_np[r, : 3 * len(maps.shared_nodes[r])] = 1.0
+        fmask_np[r, : 3 * len(maps.shared_nodes[sp.part0 + r])] = 1.0
     fmask = torch.as_tensor(fmask_np, dtype=fdt).to(dev)
     modal_pack = None
     Kfeed = S3
@@ -547,17 +579,16 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         # keeps it exactly (NumPy has no bfloat16; float32 holds it)
         wdt = torch.float32 if hdt == torch.bfloat16 else hdt
         tstore = TrajStore(
-            store.ckpt_dir("stage4"), P, sp.DL, S3, n_rec_total, W, sdt,
-            True, True, shared_dtype=wdt,
+            store.ckpt_dir("stage4"), P_all, sp.DL, S3, n_rec_total, W, sdt,
+            True, True, shared_dtype=wdt, comm=ctx.comm,
         )
         ck_expect = {
-            "num_steps": num_steps, "save_every": se_run, "P": P,
+            "num_steps": num_steps, "save_every": se_run, "P": P_all,
             "DL": sp.DL, "n_sync": n_sync, "block": block,
             "arch": arch, "hist_dtype": sur.hist_dtype or sur.dtype,
         }
         start_steps, ck_extras = tstore.resume_step(ck_expect, resume)
         tstore.open(fresh=start_steps == 0)
-        traj_full = tstore.mm["traj"]
     else:
         traj_full = np.empty((P, n_rec_total, sp.DL), dtype=np_dtype)
     rec_off = 0
@@ -569,7 +600,10 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         nonlocal rec_off
         if not torch.is_tensor(arr):
             arr = np.asarray(arr)
-        fetch_into(traj_full[:, rec_off : rec_off + arr.shape[1]], arr)
+        if tstore is not None:
+            tstore.write("traj", rec_off, arr)
+        else:
+            fetch_into(traj_full[:, rec_off : rec_off + arr.shape[1]], arr)
         rec_off += arr.shape[1]
 
     # one group's recorded blocks wait on the device until the next
@@ -591,7 +625,7 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         carry = restore_carry(sp, ck_extras["d0"], ck_extras["dn"],
                               ck_extras["tn"])
         # the stored window (the hybrid's already holds residual rows)
-        h0 = np.asarray(tstore.mm["shared"], np.float64)
+        h0 = np.asarray(tstore.result("shared"), np.float64)
     else:
         d0 = sp.localize(prob.d0)
         dn = sp.localize(prob.dn)
@@ -619,7 +653,7 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         hist = torch.as_tensor(h0, dtype=hdt).to(dev)
         # groups bounded by the bytes of their recorded trajectory (the
         # JAX package's 500 MB), and by the resync period
-        per_block_bytes = 4 * P * (block // max(se_run, 1)) * sp.DL
+        per_block_bytes = 4 * P_all * (block // max(se_run, 1)) * sp.DL
         GROUP = max(1, min(8, int(500_000_000 // max(per_block_bytes, 1))))
         if resync:
             GROUP = min(GROUP, resync)
@@ -630,7 +664,7 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
             if tstore is None:
                 return
             flush_pending()  # a resume replays from written rows only
-            tstore.mm["shared"][:] = hist.to(wdt).cpu().numpy()
+            tstore.write("shared", 0, hist.to(wdt))
             tstore.save_state(
                 carry, n_sync + done_blocks * block, ck_expect,
                 extras={"done_blocks": done_blocks,
@@ -717,7 +751,11 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
     if verbose:
         print(f"[online] {num_steps} steps in {elapsed:.2f}s "
               f"({num_steps / elapsed:.0f} steps/s)")
-    stage_log(cfg).log(
+    mesh_info = {}
+    if ctx.comm is not None:
+        mesh_info = dict(world=ctx.comm.world,
+                         rank_seconds=ctx.rank_values(round(elapsed, 3)))
+    ctx.log(
         "stage4_online",
         steps=num_steps,
         n_sync=n_sync,
@@ -732,25 +770,26 @@ def run(cfg: Config, ctx: StageContext | None = None, verbose: bool = True,
         stacked_predictor=bool(stacked_ok),
         arch=arch,
         ensemble=ens,
-        n_parts=P,
+        n_parts=P_all,
         warmup_s=round(tprof["warmup_s"], 3),
         blocks_s=round(tprof["blocks_s"], 3),
         device=str(dev),
+        **mesh_info,
     )
 
-    if rec_off != traj_full.shape[1]:
+    if rec_off != n_rec_total:
         raise RuntimeError(
-            f"stage 4 recorded {rec_off} rows, expected {traj_full.shape[1]}"
+            f"stage 4 recorded {rec_off} rows, expected {n_rec_total}"
         )
-    traj = traj_full
+    traj = traj_full if tstore is None else tstore.result("traj")
     if se_run == 1 and se > 1:
         traj = traj[:, ::se, :]
-    for r in range(P):
+    for r in ctx.parts:
         save_displacement(store.modeled_h5(r), rank_trajectory(ctx, traj, r))
     if tstore is not None:
         # the artifacts are complete: drop the mid-run checkpoint, so a
         # later (perhaps reconfigured) run of the stage starts fresh
-        del traj, traj_full
+        del traj
         tstore.cleanup()
     return ctx
 
@@ -807,7 +846,7 @@ def _per_rank_blocks(cfg, ctx, models, carry, h0, n_sync, se_run,
         n = min(block, num_steps - i)
         preds = np.zeros((P, n, S3))
         for r, m in enumerate(models):
-            Dr = 3 * len(maps.shared_nodes[r])
+            Dr = 3 * len(maps.shared_nodes[sp.part0 + r])
             if Dr == 0:
                 continue
             D_in = m.input_size

@@ -10,6 +10,13 @@ folded (d = hi + lo, d_prev = d - v) when a run returns, and a chunked
 run re-enters folded at every chunk boundary; the checkpointed runners
 cut their chunks at the same steps whether or not they were interrupted,
 so both carry identical states.
+
+Under a device mesh the files hold the whole problem, as an emulated
+run's do: rank 0 writes the carry and the recorded rows gathered from
+every rank, and a resume gives each rank its block of the saved carry
+(every rank reads the state file, which lies in the store, on one host).
+So a checkpoint written under a mesh resumes emulated, and the other way
+round.
 """
 
 from __future__ import annotations
@@ -51,10 +58,15 @@ def load_solver_state(path: str | Path
 
 
 def restore_carry(sp, d0, dn, tn):
-    """A loaded carry (d0, dn, tn) as the run's tensors: ShardedProblem
-    ``sp``'s dtype, on its device."""
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=sp.dtype).to(  # noqa
-        sp.device)
+    """A loaded carry (d0, dn, tn) of the whole problem as the run's
+    tensors: ShardedProblem ``sp``'s dtype, on its device; under a mesh
+    the rank's block of it."""
+    def as_t(a):
+        a = np.asarray(a)
+        if sp.comm is not None:
+            a = sp.comm.block(a)
+        return torch.as_tensor(a, dtype=sp.dtype).to(sp.device)
+
     return as_t(d0), as_t(dn), torch.tensor(float(tn), dtype=sp.dtype,
                                             device=sp.device)
 
@@ -70,10 +82,14 @@ class TrajStore:
     the carry and every recorded row written so far live in ``ckpt_dir``,
     so a killed process resumes with its outputs intact. The "shared"
     buffer takes ``shared_dtype`` when given (stage 4 keeps its history
-    window there in the window's own dtype)."""
+    window there in the window's own dtype). The buffers hold all ``P``
+    parts; under a mesh (``comm``, a ``MeshComm``) rank 0 writes them from
+    the rows every rank passes in, and each rank reads back its block."""
 
     def __init__(self, ckpt_dir, P, DL, S3, n_rec, n_shared, dtype,
-                 want_traj, want_shared, shared_dtype=None):
+                 want_traj, want_shared, shared_dtype=None, comm=None):
+        self.comm = comm
+        self.root = comm is None or comm.rank == 0
         self.dir = Path(ckpt_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.state_f = self.dir / "state.npz"
@@ -111,39 +127,66 @@ class TrajStore:
         if mm is None:
             f = self.dir / f"{name}.dat"
             mode = "w+" if (fresh or not f.exists()) else "r+"
+            if not self.root:
+                mode = "r"  # rank 0 made the file (open's barrier)
             mm = np.memmap(f, dtype=self.dtypes[name], mode=mode,
                            shape=shape)
             self.mm[name] = mm
         return mm
 
     def open(self, fresh: bool):
-        for name in ("traj", "shared"):
-            self._map(name, fresh)
+        if self.root:
+            for name in ("traj", "shared"):
+                self._map(name, fresh)
+        if self.comm is not None:
+            self.comm.barrier()
+            for name in ("traj", "shared"):
+                self._map(name, fresh)
         return self
 
+    def _all(self, arr):
+        """``arr`` of every part: under a mesh the ranks' blocks joined."""
+        return arr if self.comm is None else self.comm.gather(_host(arr))
+
     def write(self, name, lo, arr):
-        mm = self.mm.get(name)
-        if mm is not None:
-            a = _host(arr)
-            mm[:, lo : lo + a.shape[1]] = a
+        if self.shapes[name] is None:
+            return
+        arr = self._all(arr)
+        if self.root:
+            from .offload import fetch_into
+
+            fetch_into(self.mm[name][:, lo : lo + arr.shape[1]], arr)
 
     def save_state(self, carry, step: int, expect: dict,
                    extras: Optional[dict] = None) -> None:
+        d0, dn, tn = self._all(carry[0]), self._all(carry[1]), carry[2]
+        if not self.root:
+            return
         for mm in self.mm.values():
             if mm is not None:
                 mm.flush()
-        d0, dn, tn = carry[0], carry[1], carry[2]
         save_solver_state(
             self.state_f, d0, dn, float(tn), step,
             extra={**expect, **(extras or {})},
         )
 
     def result(self, name):
+        """The rows written so far (under a mesh the rank's block, read
+        once every rank has written)."""
         mm = self.mm.get(name)
-        return None if mm is None else np.asarray(mm)
+        if mm is None:
+            return None
+        if self.comm is None:
+            return np.asarray(mm)
+        mm.flush()
+        self.comm.barrier()
+        return np.array(self.comm.block(mm))
 
     def cleanup(self):
-        shutil.rmtree(self.dir, ignore_errors=True)
+        if self.comm is not None:
+            self.comm.barrier()
+        if self.root:
+            shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def run_streamed_ckpt(
@@ -167,16 +210,18 @@ def run_streamed_ckpt(
     called again with ``resume=True`` continues from the last completed
     chunk and gives the same bits as a run that was not interrupted (the
     chunk boundaries, the only places where the compensated stepper's lo
-    word is folded, are fixed by ``ckpt_every``)."""
+    word is folded, are fixed by ``ckpt_every``). Under a mesh the inputs
+    and outputs are the rank's block, the files the whole problem's."""
     sp = solver.sp
     if ckpt_every % save_every:
         raise ValueError("ckpt_every must be a multiple of save_every")
-    P, DL, S3 = sp.n_parts, sp.DL, sp.sld.shape[1]
+    P = sp.n_parts if sp.comm is None else sp.comm.n_parts
+    DL, S3 = sp.DL, sp.sld.shape[1]
     want_traj = record in ("all", "traj")
     want_shared = record in ("all", "shared")
     store = TrajStore(
         ckpt_dir, P, DL, S3, num_steps // save_every, num_steps,
-        sp.dtype, want_traj, want_shared,
+        sp.dtype, want_traj, want_shared, comm=sp.comm,
     )
     expect = {
         "num_steps": num_steps, "save_every": save_every,

@@ -12,7 +12,8 @@ permute exchange, an unramped load, resync blocks, checkpoints) and a
 stage's command line; then the serial-solver and steady slice (stage 1
 at ``deg = 2``, stage 3's grid, the serial runner with linear and
 Neo-Hookean forces, eigen modes). Runs in a subprocess whose import system refuses those
-names."""
+names. The device-mesh path (the five stages over a one-rank gloo mesh)
+runs the same way, in a subprocess of its own."""
 
 import subprocess
 import sys
@@ -304,6 +305,75 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert "IMPORTED" in res.stdout
+
+
+MESH_SCRIPT = textwrap.dedent(
+    """
+    import sys
+
+    BLOCKED = {blocked!r}
+
+
+    class Blocker:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import: {{name}}")
+            return None
+
+
+    sys.meta_path.insert(0, Blocker())
+    sys.path.insert(0, {root!r})
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    from savtpu_torch import api
+    from savtpu_torch.config import Config
+    from savtpu_torch.parallel import make_device_mesh
+
+    dist.init_process_group("gloo", init_method="file://{workdir}/pg",
+                            rank=0, world_size=1)
+    mesh = make_device_mesh(device_type="cpu")
+    cfg = Config()
+    cfg.workdir = {workdir!r} + "/Results"
+    cfg.model_dir = {workdir!r} + "/Distributed_save"
+    cfg.beam_cells = (6, 1, 1)
+    cfg.beam_extent = (6.0, 1.0, 1.0)
+    cfg.partition.n_parts = 2
+    cfg.solver.num_steps = 60
+    cfg.solver.fint_mode = "banded"
+    cfg.solver.compensated = True
+    s = cfg.surrogate
+    s.n_past, s.n_future, s.filter_size = 4, 4, 5
+    s.arch = "expfit"
+    s.modal_dim = 3
+    s.expfit_order = 8
+    sim = api.Simulation(cfg, device="cpu", verbose=False, device_mesh=mesh)
+    metrics = sim.run_all()
+    assert sim.ctx.solver.mesh is mesh and sim.ctx.comm.world == 1
+    assert metrics and all(v == v for v in metrics.values()
+                           if isinstance(v, float))
+    dist.destroy_process_group()
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print("MESH_RAN")
+    """
+)
+
+
+def test_mesh_path_runs_one_gloo_rank_without_jax(tmp_path):
+    """make_device_mesh and the five stages of api.Simulation over a
+    one-rank gloo mesh (stages 1 and 4 over the mesh, banded compensated:
+    K3's plain version per rank) with JAX and savtpu blocked."""
+    code = MESH_SCRIPT.format(blocked=BLOCKED, root=str(ROOT),
+                              workdir=str(tmp_path))
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=tmp_path,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "MESH_RAN" in res.stdout
 
 
 def test_no_cuda_and_no_cpu_request_raises():
