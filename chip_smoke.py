@@ -11,22 +11,23 @@
 dtype in phase 3 (default float32, as published; float64, also
 compensated so that it runs the same kernel, separates round-off from
 the rest). ``--lstm-epochs`` sets the default configuration's training
-depth (default 120, cut from the published 3,450 to keep the script
+depth (default 80, cut from the published 3,450 to keep the script
 within about 560 s: 300 until the unstructured paths came, 200 until the
-serial-solver and steady paths did, 150 until the device-mesh path did);
-``--nh-steps`` nh_box_96's depth (default 40,000, which lets expfit fit
-past the load ramp with 143 stored rows, 64 needed; 50,000 until the
-serial-solver and steady paths came; 100,000 published);
-``--surrogate-epochs`` the training epochs of the hybrids (nh_box_96's
-and tube_hybrid's residual LSTMs, default 40: 100 until the
-serial-solver and steady paths came, 60 until the device-mesh path
-did); ``--leg-epochs`` those of the
-default run's ensemble and per-rank legs (default 12: 100 until the
+serial-solver and steady paths did, 150 until the device-mesh path did,
+120 until the bench did); ``--nh-steps`` nh_box_96's depth (default
+36,000, which lets expfit fit past the load ramp with 83 stored rows, 64
+needed; 50,000 until the serial-solver and steady paths came, 40,000
+until the bench did; 100,000 published); ``--surrogate-epochs`` the
+training epochs of the hybrids (nh_box_96's and tube_hybrid's residual
+LSTMs, default 30: 100 until the serial-solver and steady paths came, 60
+until the device-mesh path did, 40 until the bench did); ``--leg-epochs``
+those of the
+default run's ensemble and per-rank legs (default 8: 100 until the
 unstructured paths came, 50 until the solver-options paths did, 30 until
 the serial-solver and steady paths did, 20 until the device-mesh path
-did; their stages 4-5 run the first 12,000 of its 100,000 steps, 30,000
-until the serial-solver and steady paths came, 21,000 until the
-device-mesh path did); ``--tube-steps``
+did, 12 until the bench did; their stages 4-5 run the first 12,000 of
+its 100,000 steps, 30,000 until the serial-solver and steady paths came,
+21,000 until the device-mesh path did); ``--tube-steps``
 tube_hybrid's depth (default 45,000, which clears its load ramp by 127
 stored rows; 60,000 until the serial-solver and steady paths came;
 100,000 published). The stage-3 epoch timing of phase 4 replays 10 epochs (20
@@ -123,11 +124,17 @@ Phases, each reported with its seconds and the running total against a
    through ``savtpu_torch.benchmarks.sweep.bench_case`` with the sweep's
    step counts, each case's launch counts, steps/s and device memory
    peak, and tiny sweep problems on the GPU held against the CPU; then
-   the default ``Config()`` (25x1x1 beam, 2 parts, dense, float64, the
-   stacked LSTM surrogate) through the same stages at its 100,000
-   steps, the training cut to ``--lstm-epochs``: stage seconds, epochs/s
-   and Adam steps/s, the rel-L2, the warm-up rows equal to stage 1's bit
-   for bit; and its stage 4 again from a copy in fint_mode "pallas",
+   the headline bench through ``savtpu_torch.benchmarks.bench.main`` at
+   its full 30,000 steps a run (96x8x8/16 scale row: 4,000), K2 three
+   times, all in its pallas leg, and K1, K3 and K4 never, every rate and
+   vs_baseline finite and above 0, its line with exactly the JAX
+   package's six keys (the line, every rep's rate and the roofline rows
+   printed), and ``benchmarks.train_bench.main`` at 5 epochs (its
+   default 50); then the default ``Config()`` (25x1x1 beam, 2 parts,
+   dense, float64, the stacked LSTM surrogate) through the same stages
+   at its 100,000 steps, the training cut to ``--lstm-epochs``: stage
+   seconds, epochs/s and Adam steps/s, the rel-L2, the warm-up rows
+   equal to stage 1's bit for bit; and its stage 4 again from a copy in fint_mode "pallas",
    over its first 12,000 steps, where K1 must launch once a step and the
    result stay within 1e-5 of the dense run; then stages 3-5 on its
    stage 1-2 artifacts again with the linear surrogate, a seed ensemble
@@ -135,7 +142,7 @@ Phases, each reported with its seconds and the running total against a
    seconds, epochs/s, ridge lambdas, rel-L2, warm-up rows bit for bit);
    and nh_box_96 (96x8x8, 16 box parts, Neo-Hookean on the stencil, the
    grid exchange, float32 compensated, expfit order 16 modal 16 on the
-   first 75% of 40,000 steps) through the same stages: stage seconds and
+   first 75% of 36,000 steps) through the same stages: stage seconds and
    stepping rates, the built problem's mode, stencil dims and exchange,
    every rank's expfit past the load ramp (not the frozen-ramp
    fallback), warm-up rows equal to stage 1's bit for bit, the rel-L2
@@ -243,24 +250,24 @@ SAVE_EVERY = 50
 # paths, stays within about 560 s (PERF.md); --lstm-epochs 3450 runs it
 # in full (300 until the unstructured slice took 34 s of its stage 3,
 # 200 until the serial-solver and steady slice took about 30 s, 150 until
-# the device-mesh path took 23 s)
-LSTM_EPOCHS = 120
-# nh_box_96's depth: 0.75 x 40,000 steps clears the 1 s load ramp (step
-# 22,825 at its dt of 4.38e-5 s) by 143 stored rows, more than the 64 that
+# the device-mesh path took 23 s, 120 until the bench took about 30 s)
+LSTM_EPOCHS = 80
+# nh_box_96's depth: 0.75 x 36,000 steps clears the 1 s load ramp (step
+# 22,825 at its dt of 4.38e-5 s) by 83 stored rows, more than the 64 that
 # expfit's post-ramp segment needs at order 16, so that stage 3 fits it
 # (the published depth is 100,000; 50,000 until the serial-solver and
-# steady slice needed the time)
-NH_STEPS = 40_000
+# steady slice needed the time, 40,000 until the bench did)
+NH_STEPS = 36_000
 # training epochs of the hybrids' residual LSTMs (nh_box_96, tube_hybrid),
 # cut from the published 3,450 (100 until the serial-solver and steady
-# slice, 60 until the device-mesh path; at 100 the residual LSTMs learned
-# nothing, R^2 about 0)
-SURROGATE_EPOCHS = 40
+# slice, 60 until the device-mesh path, 40 until the bench; at 100 the
+# residual LSTMs learned nothing, R^2 about 0)
+SURROGATE_EPOCHS = 30
 # training epochs of the default run's ensemble and per-rank legs (100
 # until the unstructured slice took 25 s of them, 50 until the
 # solver-options slice took 12 s more, 30 until the serial-solver and
-# steady slice, 20 until the device-mesh path)
-LEG_EPOCHS = 12
+# steady slice, 20 until the device-mesh path, 12 until the bench)
+LEG_EPOCHS = 8
 # the depth of the default run's second, pallas-mode stage 4: the warm-up
 # and three whole 3,000-step blocks (100,000 until the solver-options
 # slice needed its time, 21,000 until the device-mesh path did; most of
@@ -932,6 +939,110 @@ def run_sweep_path(dev):
         for k in totals:
             totals[k] += counts[k]
     return rows, totals
+
+
+# the bench's JSON line has exactly the JAX package's keys (root bench.py)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
+              "scale_96x8x8_16shards_steps_per_sec",
+              "scale_96x8x8_16shards_elem_updates_per_sec"}
+# train_bench's depth here, cut from its default of 50 epochs: its host
+# loop takes 1-1.4 s an epoch on the card's machine (PERF.md)
+TRAIN_BENCH_EPOCHS = 5
+
+
+def run_bench_path(root: Path):
+    """The port's headline bench through ``benchmarks/bench.main`` at its
+    full sizes (30,000 steps a headline run, 4,000 at the 96x8x8/16 scale
+    row), its details written under ``root``: the launch counts are set to
+    0 just before and read just after. K2 must launch 3 times, all in the
+    pallas leg (the untimed run and 2 reps), and K1, K3 and K4 never; every
+    rate and vs_baseline finite and above 0; the line with exactly the JAX
+    package's keys. Then ``benchmarks/train_bench.main`` at
+    TRAIN_BENCH_EPOCHS epochs, launching none. Returns ({"bench": ...,
+    "train_bench": ...} readings with "failures", the bench's line, the
+    bench's launch counts)."""
+    import contextlib
+    import io
+
+    from savtpu_torch.benchmarks import bench, train_bench
+
+    details = root / "bench_details.json"
+    out = io.StringIO()
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--details", str(details)])
+    bench_s = time.perf_counter() - t0
+    launches = linear_kernel_launches()
+    text = out.getvalue().strip().splitlines()[-1]
+    line = json.loads(text)
+    d = json.loads(details.read_text())
+    scale = d["scale_96x8x8_16shards"]
+    rates = [line.get(k) for k in sorted(BENCH_KEYS - {"metric", "unit"})]
+    rates += [r for reps in d["rep_steps_per_sec"].values() for r in reps]
+    rates += [r for reps in scale["rep_steps_per_sec"].values() for r in reps]
+    rates += d["numpy_reference_rep_steps_per_sec"]
+    legs = {**d["kernel_launches"],
+            **{f"scale_{m}": n for m, n in scale["kernel_launches"].items()}}
+    k2_by_leg = {leg: n["scan_comm_free"] for leg, n in legs.items()}
+    others = {k: n for k, n in launches.items() if k != "scan_comm_free"}
+    res = {
+        "bench_s": bench_s,
+        "device": d["device"],
+        "problem": d["problem"],
+        "steps": d["steps"],
+        "sync_avoiding_mode": d["sync_avoiding_mode"],
+        "sync_avoiding_by_mode": d["sync_avoiding_by_mode"],
+        "exchanged_steps_per_sec": d["exchanged_steps_per_sec"],
+        "rep_steps_per_sec": d["rep_steps_per_sec"],
+        "untimed_run_s": d["untimed_run_s"],
+        "vs_baseline": line.get("vs_baseline"),
+        "numpy_reference_rep_steps_per_sec":
+            d["numpy_reference_rep_steps_per_sec"],
+        "scale": {k: scale[k] for k in (
+            "mesh", "elements", "n_parts", "fint_mode", "by_mode", "steps",
+            "rep_steps_per_sec", "untimed_run_s")},
+        "roofline": {**d["roofline_toy"],
+                     **{f"scale_{m}": r
+                        for m, r in scale["roofline"].items()}},
+        "kernel_launches": launches,
+        "k2_launches_by_leg": k2_by_leg,
+    }
+    res["failures"] = [msg for bad, msg in (
+        (rc != 0, f"bench.main returned {rc}"),
+        (set(line) != BENCH_KEYS, f"the line's keys are {sorted(line)}"),
+        (not all(isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+                 for x in rates),
+         f"a rate is not finite and above 0: {rates}"),
+        (launches["scan_comm_free"] != 3 or k2_by_leg.get("pallas_avoid") != 3
+         or sum(k2_by_leg.values()) != 3,
+         f"K2 launched {launches['scan_comm_free']} times, by leg "
+         f"{k2_by_leg} (expected 3, all in the pallas leg)"),
+        (any(others.values()), f"K1, K3 or K4 launched: {others}"),
+    ) if bad]
+
+    train_out = root / "train_bench.json"
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = train_bench.main(["--epochs", str(TRAIN_BENCH_EPOCHS), "--out",
+                               str(train_out)])
+    tb = json.loads(train_out.read_text())
+    tb["train_bench_s"] = time.perf_counter() - t0
+    tb["k1_k4_launches"] = linear_kernel_launches()
+    numbers = [tb[k] for k in ("savtpu_seconds_incl_compile",
+                               "savtpu_steady_sec_per_epoch",
+                               "torch_cpu_sec_per_epoch")]
+    tb["failures"] = [msg for bad, msg in (
+        (rc != 0, f"train_bench.main returned {rc}"),
+        (not all(math.isfinite(x) and x > 0 for x in numbers),
+         f"a time is not finite and above 0: {numbers}"),
+        (not all(math.isfinite(x) for x in tb["final_losses"].values()),
+         f"non-finite losses {tb['final_losses']}"),
+        (any(tb["k1_k4_launches"].values()),
+         f"train_bench launched a linear kernel: {tb['k1_k4_launches']}"),
+    ) if bad]
+    return {"bench": res, "train_bench": tb}, text, launches
 
 
 def small_sweep_gpu_vs_cpu(dev, steps=200):
@@ -4471,6 +4582,17 @@ def main(argv=None) -> int:
             "checkpoint_resume": ckpt["k1_k4_launches"],
             "unramped_beam": unramped["k1_k4_launches"]}
 
+        # the headline bench (K2 in its pallas leg) and train_bench
+        (tmp / "bench").mkdir()
+        bench_res, bench_line, bench_launches = run_bench_path(tmp / "bench")
+        print(bench_line, flush=True)
+        for name, res in bench_res.items():
+            clock.phase(3, name, **res)
+        failures = {n: r["failures"] for n, r in bench_res.items()
+                    if r["failures"]}
+        if failures:
+            raise RuntimeError(f"bench paths: {failures}")
+
         # the unstructured slice: irregular_96 from its binary .msh (K3
         # in stage 4), tube_hybrid from an ASCII .msh
         irr_path, irr_sp96 = run_irregular_path(tmp, dev, irr_msh, steps)
@@ -4621,6 +4743,7 @@ def main(argv=None) -> int:
         "source": "savtpu_torch/csrc/online_banded.cu",
         "replaces": "savtpu/ops/pallas_banded.py:234",
         "launches": launches,
+        "launches_bench": bench_launches["online_chunk"],
         "launches_surrogate_paths": on_surrogate_paths("online_chunk"),
         "launches_unstructured_paths": on_unstructured_paths("online_chunk"),
         "launches_options_paths": on_options_paths("online_chunk"),
@@ -4641,6 +4764,8 @@ def main(argv=None) -> int:
         "source": source,
         "replaces": replaces,
         "launches": sweep_launches[name],
+        "launches_bench": bench_launches[
+            "batched_fint_matvec" if name == "fint_matvec" else name],
         "max_abs_err": checks[f"{name}_{tag}"]["max_abs_err"],
         "ms": timing[f"{name}_{tag}"]["ms"],
         "plain_ms": timing[f"{name}_{tag}"]["plain_ms"],

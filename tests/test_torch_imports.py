@@ -5,7 +5,9 @@ dropout, a seed ensemble and the linear surrogate; on meshes read from
 gmsh ``.msh`` and ``.vtu`` files: an irregular beam in graph parts,
 banded and with the windowed Neo-Hookean layout, and the periodic tube
 on its box stencil with the seam-wrapped grid exchange) and its
-``--quick`` sweep run on the CPU, with every package the card's machine lacks
+``--quick`` sweep and its measurement entry points (``benchmarks/bench``,
+``train_bench``, ``partition_quality`` at small sizes) run on the CPU,
+with every package the card's machine lacks
 blocked: JAX, flax, optax, h5py, meshio, matplotlib, and
 savtpu itself; then the solver-options slice (ell and ebe forces, the
 permute exchange, an unramped load, resync blocks, checkpoints) and a
@@ -57,9 +59,20 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     for name in ("models.data", "models.lstm", "models.predictor",
                  "models.training", "mesh.msh_io", "mesh.vtu_io",
-                 "native"):
+                 "native", "benchmarks.bench", "benchmarks.train_bench",
+                 "benchmarks.partition_quality"):
         assert "savtpu_torch." + name in names, name
     import chip_smoke  # noqa: F401  (imported, not run)
+
+    # the measurement entry points, at small sizes
+    from savtpu_torch.benchmarks import bench, partition_quality, train_bench
+
+    assert bench.main(["--device", "cpu", "--steps", "100",
+                       "--scale-steps", "10",
+                       "--scale-cells", "24", "4", "4",
+                       "--scale-parts", "4"]) == 0
+    assert train_bench.main(["--epochs", "1", "--device", "cpu"]) == 0
+    assert partition_quality.main([]) == 0
 
     from savtpu_torch.config import Config
     from savtpu_torch.pipeline import run_all
