@@ -2,19 +2,23 @@
 """Drive savtpu_torch's main path on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py [--steps N] [--dtype float32|float64]
-                          [--lstm-epochs E] [--nh-steps N]
+                          [--lstm-steps N] [--lstm-epochs E] [--nh-steps N]
                           [--surrogate-epochs E] [--leg-epochs E]
                           [--tube-steps N] [--pcg-big]
 
 ``--steps`` sets the depth of the slice and of irregular_96 (default
-9,000; 100,000 is the published schedule); ``--dtype`` the slice's state
+9,000; 100,000 is the published schedule); ``--lstm-steps`` the default
+configuration's (default 50,000, cut from the published 100,000 when the
+mesh path's float32 envelope came: most of its stages 1, 4 and 5 is the
+save_every-1 trajectory's .npz writes and reads); ``--dtype`` the slice's state
 dtype in phase 3 (default float32, as published; float64, also
 compensated so that it runs the same kernel, separates round-off from
 the rest). ``--lstm-epochs`` sets the default configuration's training
-depth (default 80, cut from the published 3,450 to keep the script
+depth (default 60, cut from the published 3,450 to keep the script
 within about 560 s: 300 until the unstructured paths came, 200 until the
 serial-solver and steady paths did, 150 until the device-mesh path did,
-120 until the bench did); ``--nh-steps`` nh_box_96's depth (default
+120 until the bench did, 80 until the mesh path's float32 envelope
+did); ``--nh-steps`` nh_box_96's depth (default
 36,000, which lets expfit fit past the load ramp with 83 stored rows, 64
 needed; 50,000 until the serial-solver and steady paths came, 40,000
 until the bench did; 100,000 published); ``--surrogate-epochs`` the
@@ -22,11 +26,12 @@ training epochs of the hybrids (nh_box_96's and tube_hybrid's residual
 LSTMs, default 30: 100 until the serial-solver and steady paths came, 60
 until the device-mesh path did, 40 until the bench did); ``--leg-epochs``
 those of the
-default run's ensemble and per-rank legs (default 8: 100 until the
+default run's ensemble and per-rank legs (default 6: 100 until the
 unstructured paths came, 50 until the solver-options paths did, 30 until
 the serial-solver and steady paths did, 20 until the device-mesh path
-did, 12 until the bench did; their stages 4-5 run the first 12,000 of
-its 100,000 steps, 30,000 until the serial-solver and steady paths came,
+did, 12 until the bench did, 8 until the mesh path's float32 envelope
+did; their stages 4-5 run the first 12,000 of
+its steps, 30,000 until the serial-solver and steady paths came,
 21,000 until the device-mesh path did); ``--tube-steps``
 tube_hybrid's depth (default 45,000, which clears its load ramp by 127
 stored rows; 60,000 until the serial-solver and steady paths came;
@@ -48,7 +53,11 @@ Phases, each reported with its seconds and the running total against a
    must reject; then K3 in every launch shape the plan can take (one
    block per part, clusters of 3, 8, 12 and 16 blocks with resident rows,
    5 blocks all streamed; sizes the card cannot co-schedule left out),
-   forced, over 300 steps; K1, K2 (with and without predictions, shared
+   forced, over 300 steps; what a rank of a four-card mesh computes for
+   its 4 of the slice's 16 parts (``online_banded_block_of_4_vs_16``: K3
+   on those parts alone, as band_plan plans 4 parts, and the band
+   matvec, against their rows of the 16-part batch; a reading, no
+   check); K1, K2 (with and without predictions, shared
    rows recorded) and K4 at the shapes of the sweep cases that run them,
    K2 also at 25x1x1/2 and in every launch shape its plan can take
    (forced at 48x4x4/8 and 8x1x1/2), K4 also at 96x8x8/8 and in every
@@ -129,10 +138,10 @@ Phases, each reported with its seconds and the running total against a
    times, all in its pallas leg, and K1, K3 and K4 never, every rate and
    vs_baseline finite and above 0, its line with exactly the JAX
    package's six keys (the line, every rep's rate and the roofline rows
-   printed), and ``benchmarks.train_bench.main`` at 5 epochs (its
+   printed), and ``benchmarks.train_bench.main`` at 3 epochs (its
    default 50); then the default ``Config()`` (25x1x1 beam, 2 parts,
    dense, float64, the stacked LSTM surrogate) through the same stages
-   at its 100,000 steps, the training cut to ``--lstm-epochs``: stage
+   at ``--lstm-steps`` steps, the training cut to ``--lstm-epochs``: stage
    seconds, epochs/s and Adam steps/s, the rel-L2, the warm-up rows
    equal to stage 1's bit for bit; and its stage 4 again from a copy in fint_mode "pallas",
    over its first 12,000 steps, where K1 must launch once a step and the
@@ -191,7 +200,13 @@ Phases, each reported with its seconds and the running total against a
    of its steps, K1 once a step on every rank; each held against the
    emulated run, bit for bit at one rank, within 1e-12 in float64 and
    1e-4 for the float32 slice over several; per-rank stage seconds
-   beside the emulated ones);
+   beside the emulated ones; the float32 slice's envelope: its stages 1
+   and 4 again in float64, and the mesh's departure from the emulated
+   run and from the float64 run each within 3 times the emulated run's
+   own departure from the float64 run; ``mesh_linear_fit``: the linear
+   surrogate's ``fit_stacked(mesh=)`` over the slice's ranks, the
+   blocks and every rank's history equal to the unsharded fit's bit
+   for bit);
 4. kernel timing with CUDA events: kernel, plain version, bound (and for
    K2, K3 and K4 the floor of re-reading the operator from HBM every
    step), the plan K3 and K4 ran with, the PyTorch call that computes
@@ -209,9 +224,10 @@ Phases, each reported with its seconds and the running total against a
    the irregular 96x8x8/16 Neo-Hookean step in the windowed layout and
    with the incident list; then ``roofline_profile_offload``: the share
    of the HBM peak (``utils/roofline.py``: bytes_floor_per_step over the
-   measured steps/s; K4's with its band plan, less the rows it keeps
-   resident) of the slice's exchanged stepper and of the sweep's K1 and
-   K4 rows, none above 100%; ``profile_trace`` around 100 replayed slice
+   measured steps/s; K3's and K4's with their band plan, less the rows
+   they keep resident) of the slice's exchanged stepper, of K3's online
+   block at the slice and of the sweep's K1 and K4 rows, none above
+   100%; ``profile_trace`` around 100 replayed slice
    steps (its Chrome trace names the step's kernels), and ``fetch_into``
    against one direct copy and a bulk ``.cpu()`` of the slice's
    trajectory and of its full-depth size, GB/s each.
@@ -250,8 +266,15 @@ SAVE_EVERY = 50
 # paths, stays within about 560 s (PERF.md); --lstm-epochs 3450 runs it
 # in full (300 until the unstructured slice took 34 s of its stage 3,
 # 200 until the serial-solver and steady slice took about 30 s, 150 until
-# the device-mesh path took 23 s, 120 until the bench took about 30 s)
-LSTM_EPOCHS = 80
+# the device-mesh path took 23 s, 120 until the bench took about 30 s,
+# 80 until the mesh path's float32 envelope took 11 s)
+LSTM_EPOCHS = 60
+# the default-config run's depth, cut from the published 100,000 steps
+# (at save_every 1 most of its stages 1, 4 and 5 and of its legs' stage 3
+# is the trajectory's .npz writes and reads and the windows it yields);
+# --lstm-steps 100000 runs it in full (100,000 until the mesh path's
+# float32 envelope came and a slow host took the script past 560 s)
+LSTM_STEPS = 50_000
 # nh_box_96's depth: 0.75 x 36,000 steps clears the 1 s load ramp (step
 # 22,825 at its dt of 4.38e-5 s) by 83 stored rows, more than the 64 that
 # expfit's post-ramp segment needs at order 16, so that stage 3 fits it
@@ -266,8 +289,9 @@ SURROGATE_EPOCHS = 30
 # training epochs of the default run's ensemble and per-rank legs (100
 # until the unstructured slice took 25 s of them, 50 until the
 # solver-options slice took 12 s more, 30 until the serial-solver and
-# steady slice, 20 until the device-mesh path, 12 until the bench)
-LEG_EPOCHS = 8
+# steady slice, 20 until the device-mesh path, 12 until the bench, 8
+# until the mesh path's float32 envelope)
+LEG_EPOCHS = 6
 # the depth of the default run's second, pallas-mode stage 4: the warm-up
 # and three whole 3,000-step blocks (100,000 until the solver-options
 # slice needed its time, 21,000 until the device-mesh path did; most of
@@ -946,8 +970,9 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
               "scale_96x8x8_16shards_steps_per_sec",
               "scale_96x8x8_16shards_elem_updates_per_sec"}
 # train_bench's depth here, cut from its default of 50 epochs: its host
-# loop takes 1-1.4 s an epoch on the card's machine (PERF.md)
-TRAIN_BENCH_EPOCHS = 5
+# loop takes 1-3.8 s an epoch on the card's machine (PERF.md; 5 until a
+# slow host took 36 s for them)
+TRAIN_BENCH_EPOCHS = 3
 
 
 def run_bench_path(root: Path):
@@ -1248,11 +1273,12 @@ def keep_traces(out_dir, cfg, store, per_rank, dt):
 
 # ---- the default configuration: the LSTM surrogate ----
 
-def lstm_config(workdir: Path, epochs: int, fint_mode: str = "auto"):
+def lstm_config(workdir: Path, epochs: int, fint_mode: str = "auto",
+                steps: int | None = None):
     """The default Config() (25x1x1 beam, 2 RCB parts, dense, float64,
     100,000 steps at save_every 1, the stacked LSTM surrogate), with the
     training cut to ``epochs`` epochs (the published 3,450 with
-    --lstm-epochs 3450)."""
+    --lstm-epochs 3450) and, given ``steps``, the run to that many."""
     from savtpu_torch.config import Config
 
     cfg = Config()
@@ -1260,6 +1286,8 @@ def lstm_config(workdir: Path, epochs: int, fint_mode: str = "auto"):
     cfg.model_dir = str(workdir / "Distributed_save")
     cfg.solver.fint_mode = fint_mode
     cfg.surrogate.num_epochs = epochs
+    if steps is not None:
+        cfg.solver.num_steps = steps
     return cfg
 
 
@@ -1629,8 +1657,9 @@ def stage_events(cfg):
     return events
 
 
-def run_lstm_path(root: Path, dev, epochs, leg_epochs):
-    """Phase 3's default-config run through api.Simulation, then its
+def run_lstm_path(root: Path, dev, epochs, leg_epochs, steps):
+    """Phase 3's default-config run through api.Simulation (``steps``
+    steps), then its
     stage 4 again from a copy of the workdir in fint_mode "pallas", where
     K1 runs every step, then the surrogate legs on its stage 1-2
     artifacts (:func:`run_surrogate_legs`), then stage 3's grid on them
@@ -1642,7 +1671,7 @@ def run_lstm_path(root: Path, dev, epochs, leg_epochs):
     from savtpu_torch.ops.dense_step import batched_fint_matvec
     from savtpu_torch.pipeline import online_predictor
 
-    cfg = lstm_config(root / "dense", epochs)
+    cfg = lstm_config(root / "dense", epochs, steps=steps)
     steps, se = cfg.solver.num_steps, cfg.solver.save_every
     sim, metrics, times = run_stages(cfg, dev)
     del sim
@@ -1654,6 +1683,7 @@ def run_lstm_path(root: Path, dev, epochs, leg_epochs):
     s3 = ev["stage3_train_stacked"]
     res = {
         "steps": steps, "epochs": epochs,
+        "published_steps": lstm_config(root, None).solver.num_steps,
         "published_epochs": lstm_config(root, None).surrogate.epochs,
         "stage_s": times,
         "setup": ev["setup_breakdown"],
@@ -3734,13 +3764,15 @@ def run_stage3_grid(workdir: Path, dev, epochs=GRID_EPOCHS):
 
 
 def check_roofline_profile_offload(sp_slice, sweep_rows, sweep_sps, dev,
-                                   root: Path, traj_rows):
+                                   root: Path, traj_rows, k3):
     """Phase 4's utilities: ``roofline`` of the slice's exchanged stepper
-    (1,000 replayed steps with record "none", after a warm-up) and of the
-    sweep's K1 rows (exchanged) and K4 rows (comm-free) from their
-    measured steps/s and ``bytes_floor_per_step`` (for K4 with its band
-    plan: the Kd rows it keeps in shared memory are read once a run); no
-    share may pass 100%. ``profile_trace`` around 100 replayed slice
+    (1,000 replayed steps with record "none", after a warm-up), of K3's
+    online block at the slice (``k3`` = (ms per block, steps a block, its
+    band plan) from its phase-4 timing) and of the sweep's K1 rows
+    (exchanged) and K4 rows (comm-free) from their measured steps/s and
+    ``bytes_floor_per_step`` (for K3 and K4 with their band plan: the Kd
+    rows they keep in shared memory are read once a run); no share may
+    pass 100%. ``profile_trace`` around 100 replayed slice
     steps, whose Chrome trace must name the step's kernels;
     ``fetch_into`` against one direct ``copy_`` into the host array and
     a bulk ``.cpu()``, at the slice's trajectory (P x traj_rows x DL
@@ -3785,6 +3817,10 @@ def check_roofline_profile_offload(sp_slice, sweep_rows, sweep_sps, dev,
     torch.cuda.synchronize()
     res = {"slice_exchanged": {"fint_mode": sp.fint_mode, **line(
         sp, steps / (time.perf_counter() - t0))}}
+    k3_ms, k3_steps, k3_plan = k3
+    res["slice_online_banded"] = {"ms_per_block": k3_ms,
+                                  "steps_per_block": k3_steps, **line(
+                                      sp, k3_steps / (k3_ms / 1e3), k3_plan)}
     for row, sp_k in zip(sweep_rows, sweep_sps):
         key = "exchanged" if sp_k.fint_mode == "pallas" else "sync_avoiding"
         tag = (f"sweep_{row['mesh']}_p{row['n_parts']}_{row['fint_mode']}_"
@@ -3859,6 +3895,50 @@ MESH_TOL = {"float64": 1e-12, "float32": 1e-4}
 # a rank still running after this many seconds prints its stacks and
 # exits, which fails the spawn: a hung collective fails the script
 MESH_RANK_LIMIT_S = 240
+# the float32 envelope (ROADMAP C1): the mesh's departure from the
+# emulated run (a) and from a float64 run of the same problem (c), each at
+# most this many times the emulated run's own departure from the float64
+# run (b); tests/test_torch_mesh.py holds the same factor on the CPU
+MESH_ENVELOPE = 3.0
+
+
+def linear_fit_inputs(P=16, G=200, D=8, seed=SEED):
+    """The mesh path's linear fit: the default surrogate config with
+    arch "linear", and seeded windows (X, Y, feature mask) of P models of
+    D features at its n_past and n_future (P the slice's parts, D its
+    modal width)."""
+    import numpy as np
+
+    from savtpu_torch.config import Config
+
+    cfg = Config().surrogate
+    cfg.arch = "linear"
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0.0, 1.0, (P, G, cfg.n_past, D))
+    Y = rng.uniform(0.0, 1.0, (P, G, cfg.n_future, D))
+    return cfg, X, Y, np.ones((P, D))
+
+
+def linear_fit_rank(mesh, rank, out_dir):
+    """One rank's ``fit_stacked(mesh=, arch="linear")`` on
+    :func:`linear_fit_inputs`: its block of the maps and the history
+    written to out_dir/linear_rank<rank>.npz; returns its readings."""
+    import numpy as np
+    import torch
+
+    from savtpu_torch.models.training import fit_stacked
+
+    cfg, X, Y, fm = linear_fit_inputs()
+    t0 = time.perf_counter()
+    model, hist = fit_stacked(cfg, X, Y, fm, mesh=mesh,
+                              log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    fit_s = round(time.perf_counter() - t0, 3)
+    np.savez(Path(out_dir, f"linear_rank{rank}.npz"),
+             **{f"param.{k}": v for k, v in model.arrays().items()},
+             **{f"hist.{k}": v for k, v in hist.items()})
+    return {"fit_s": fit_s, "models": model.n_models,
+            "device": str(model.lin.W.device)}
 
 
 def mesh_world(n_parts: int) -> int:
@@ -3904,6 +3984,9 @@ def mesh_rank(rank, world, init, jobs, out_dir, limit_s):
         mesh = make_device_mesh()
         readings = {}
         for job in jobs:
+            if job.get("kind") == "linear_fit":
+                readings[job["name"]] = linear_fit_rank(mesh, rank, out_dir)
+                continue
             cfg = Config.from_json(job["cfg"])
             sim = api.Simulation(cfg, verbose=False, device_mesh=mesh)
             t0 = time.perf_counter()
@@ -3980,6 +4063,88 @@ def artifact_diff(cfg_a, cfg_b, what, n_parts, rows=None):
     return equal, rel, err
 
 
+def float32_envelope(root: Path, dev, steps, cfg_mesh, cfg_emulated):
+    """C1's float32 envelope on the card: the slice's stages 1 and 4 again
+    in float64 (compensated, emulated) from a copy of the float32 slice's
+    stage 2-3 artifacts; (a) the mesh run against the float32 emulated
+    run, (b) that run against the float64 one, (c) the mesh run against
+    the float64 one, each artifact_diff's largest |a - b| over b's
+    largest, for the dynamics and the modeled rows."""
+    from savtpu_torch import api
+
+    shutil.copytree(root / "slice", root / "slice_f64")
+    cfg64 = slice_config(root / "slice_f64", steps, "float64")
+    t0 = time.perf_counter()
+    sim = api.Simulation(cfg64, device=dev, verbose=False)
+    sim.generate_data()
+    sim.run_online()
+    run_s = round(time.perf_counter() - t0, 3)
+    del sim
+    P = cfg_mesh.partition.n_parts
+    out = {"float64_stages_1_4_s": run_s, "factor": MESH_ENVELOPE}
+    for what in ("dynamics_h5", "modeled_h5"):
+        a = artifact_diff(cfg_mesh, cfg_emulated, what, P)[1]
+        b = artifact_diff(cfg_emulated, cfg64, what, P)[1]
+        c = artifact_diff(cfg_mesh, cfg64, what, P)[1]
+        out[what.split("_")[0]] = {"a_mesh_vs_emulated": a,
+                                   "b_emulated_vs_float64": b,
+                                   "c_mesh_vs_float64": c}
+    shutil.rmtree(root / "slice_f64", ignore_errors=True)
+    return out
+
+
+def check_block_split(sp, args, kw, n_sm, table, parts=4):
+    """What a rank of a four-card mesh computes for its block of the
+    slice's 16 parts, against the same parts in the one-card batch: K3 on
+    parts 0..parts-1 alone (as band_plan plans that many parts) against
+    those rows of K3 on all 16, and the exchanged step's band matvec and
+    translation mean (``ShardedProblem._translation_mean``, a sum over
+    each part's nodes) likewise. A reading of where a mesh's float32
+    rounding can depart from the emulated run's; no check."""
+    import types
+
+    import torch
+
+    from savtpu_torch.ops.band_plan import band_plan
+    from savtpu_torch.ops.online_banded import (
+        band_matvec,
+        block_distance,
+        online_chunk,
+    )
+
+    Kd, Kl, hi = args[0], args[1], args[2]
+    P, nc, Bk, _ = Kd.shape
+    full = online_chunk(*args, **kw)
+    block = online_chunk(*[a[:parts] for a in args], **kw)
+    rows = tuple(t[:parts] for t in full)
+    dist = block_distance(block, rows)
+    y = band_matvec(Kd, Kl, hi)
+    yb = band_matvec(Kd[:parts], Kl[:parts], hi[:parts])
+    d = hi.new_zeros((P, sp.DL))
+    n = min(sp.DL, hi.shape[1])
+    d[:, :n] = hi[:, :n]
+    block_sp = types.SimpleNamespace(
+        local_dofs_global=sp.local_dofs_global[:parts],
+        dof_mask=sp.dof_mask[:parts])
+    tm = type(sp)._translation_mean(sp, d)
+    tmb = type(sp)._translation_mean(block_sp, d[:parts].contiguous())
+    torch.cuda.synchronize()
+    return {
+        "parts": [P, parts],
+        "k3_plans": {str(n): vars(band_plan(n, nc, Bk, hi.dtype, n_sm,
+                                            table)) for n in (P, parts)},
+        "k3_bits_equal": {k: bool(torch.equal(a, b)) for k, a, b in zip(
+            ("hi", "lo", "v", "shared", "traj"), block, rows)},
+        "k3_max_rel": {k: v["max_rel"] for k, v in dist.items()},
+        "band_matvec_bits_equal": bool(torch.equal(yb, y[:parts])),
+        "band_matvec_max_abs": float((yb - y[:parts]).abs().max()),
+        "translation_mean_bits_equal": bool(torch.equal(tmb, tm[:parts])),
+        "translation_mean_max_rel": float(
+            (tmb - tm[:parts]).abs().max()
+            / tm[:parts].abs().max().clamp(min=1e-30)),
+    }
+
+
 def run_mesh_path(root: Path, dev, steps, dtype, slice_times,
                   limit_s=MESH_RANK_LIMIT_S):
     """Phase 3's mesh path. The slice: stages 1 and 4 over
@@ -3990,8 +4155,17 @@ def run_mesh_path(root: Path, dev, steps, dtype, slice_times,
     ``mesh_world(2)`` ranks for MESH_K1_STEPS steps, K1 once a step on
     every rank, held against the same prefix run emulated here. At one
     rank both must equal the emulated runs bit for bit, over several
-    within MESH_TOL. Returns {phase name: readings with "failures"}."""
+    within MESH_TOL; in float32 the slice also within MESH_ENVELOPE of
+    float32's own departure from a float64 run (:func:`float32_envelope`).
+    The linear surrogate's ``fit_stacked(mesh=)`` over ``mesh_world(16)``
+    ranks: the blocks joined in rank order and every rank's history
+    equal to the unsharded fit's bit for bit. Returns {phase name:
+    readings with "failures"}."""
+    import numpy as np
+    import torch
+
     from savtpu_torch import api
+    from savtpu_torch.models.training import fit_stacked
     from savtpu_torch.ops.dense_step import batched_fint_matvec
 
     shutil.copytree(root / "slice", root / "mesh_slice")
@@ -4015,7 +4189,9 @@ def run_mesh_path(root: Path, dev, steps, dtype, slice_times,
                                world=mesh_world(cfg_s.partition.n_parts)),
             "mesh_default_pallas": dict(
                 cfg=str(root / "mesh_default.json"), stages=["stage1"],
-                world=mesh_world(cfg_d.partition.n_parts))}
+                world=mesh_world(cfg_d.partition.n_parts)),
+            "mesh_linear_fit": dict(kind="linear_fit",
+                                    world=mesh_world(16))}
     readings, walls = {}, {}
     for world in sorted({j["world"] for j in jobs.values()}):
         mine = [dict(name=n, **j) for n, j in jobs.items()
@@ -4068,7 +4244,49 @@ def run_mesh_path(root: Path, dev, steps, dtype, slice_times,
          f"the mesh departs from the emulated run: {dyn[1]:.3e}, "
          f"{mod[1]:.3e}"),
     ) if bad]
+    if dtype == "float32":
+        env = float32_envelope(root, dev, steps, cfg_s, cfg_ref)
+        res["float32_envelope"] = env
+        res["failures"] += [
+            f"{k}: the mesh leaves float32's envelope ({v})"
+            for k, v in env.items() if isinstance(v, dict) and not (
+                v["a_mesh_vs_emulated"]
+                <= MESH_ENVELOPE * v["b_emulated_vs_float64"]
+                and v["c_mesh_vs_float64"]
+                <= MESH_ENVELOPE * v["b_emulated_vs_float64"])]
     out["mesh_slice_96x8x8_p16"] = res
+
+    # the linear fit under the mesh against the unsharded fit
+    ranks = readings["mesh_linear_fit"]
+    world = len(ranks)
+    cfg_l, X, Y, fm = linear_fit_inputs()
+    t0 = time.perf_counter()
+    ref_model, ref_hist = fit_stacked(cfg_l, X, Y, fm, device=dev,
+                                      log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    ref_s = round(time.perf_counter() - t0, 3)
+    ref = {**{f"param.{k}": v for k, v in ref_model.arrays().items()},
+           **{f"hist.{k}": v for k, v in ref_hist.items()}}
+    got = [dict(np.load(root / f"mesh_world{world}" / f"linear_rank{r}.npz"))
+           for r in range(world)]
+    blocks_equal = all(
+        np.array_equal(np.concatenate([g[k] for g in got]), v)
+        for k, v in ref.items() if k.startswith("param."))
+    hist_equal = all(np.array_equal(g[k], v) for g in got
+                     for k, v in ref.items() if k.startswith("hist."))
+    res = {"world": world, "models": int(X.shape[0]),
+           "models_per_rank": [r["models"] for r in ranks],
+           "devices": [r["device"] for r in ranks],
+           "fit_s_per_rank": [r["fit_s"] for r in ranks],
+           "unsharded_fit_s": ref_s, "blocks_equal": blocks_equal,
+           "history_equal": hist_equal}
+    res["failures"] = [msg for bad, msg in (
+        (not blocks_equal, "the ranks' blocks are not the unsharded maps"),
+        (not hist_equal, "a rank's history is not the unsharded one"),
+        (sum(res["models_per_rank"]) != res["models"],
+         "the blocks do not cover the models"),
+    ) if bad]
+    out["mesh_linear_fit"] = res
 
     # the default configuration's stage 1 in pallas mode
     ranks = readings["mesh_default_pallas"]
@@ -4142,6 +4360,9 @@ def main(argv=None) -> int:
                     help="a directory to save the stage-2 traces of the "
                          "slice's departing and median ranks in (for a "
                          "refit on another machine)")
+    ap.add_argument("--lstm-steps", type=int, default=LSTM_STEPS,
+                    help="the default-config (LSTM) run's depth in steps "
+                         "in phase 3; 100000 is the published depth")
     ap.add_argument("--lstm-epochs", type=int, default=LSTM_EPOCHS,
                     help="training epochs of the default-config (LSTM) "
                          "run in phase 3; 3450 is the published depth")
@@ -4250,6 +4471,10 @@ def main(argv=None) -> int:
         if k3["failures"]:
             raise RuntimeError(f"online_banded: {k3['failures']}")
         max_abs_err = k3["max_abs_err"]
+        # what a rank of a four-card mesh computes for its 4 of the 16
+        # parts, against those parts in the one-card batch (ROADMAP C1)
+        clock.phase(2, "online_banded_block_of_4_vs_16", **check_block_split(
+            sp, args, kw, n_sm, tables["online_banded"]))
         # every launch shape the plan can take, forced, over 300 steps
         args_f, kw_f = k3_inputs(sp, dev, 300, SEED)
         refs = online_references(args_f, kw_f)
@@ -4619,11 +4844,12 @@ def main(argv=None) -> int:
             if res["failures"]:
                 raise RuntimeError(f"{name}: {res['failures']}")
 
-        # the default Config(): the LSTM-fed run at 100,000 steps, the
-        # training cut to --lstm-epochs epochs; then its stage 4 on K1;
-        # then the linear, ensemble and per-rank legs on its artifacts
+        # the default Config(): the LSTM-fed run at --lstm-steps steps,
+        # the training cut to --lstm-epochs epochs; then its stage 4 on
+        # K1; then the linear, ensemble and per-rank legs on its artifacts
         lstm_path, legs, grid = run_lstm_path(
-            tmp / "lstm", dev, opts.lstm_epochs, opts.leg_epochs)
+            tmp / "lstm", dev, opts.lstm_epochs, opts.leg_epochs,
+            opts.lstm_steps)
         clock.phase(3, "lstm_default_config", **lstm_path)
         if lstm_path["failures"]:
             raise RuntimeError(f"LSTM path: {lstm_path['failures']}")
@@ -4717,7 +4943,7 @@ def main(argv=None) -> int:
         clock.phase(4, "lstm_epoch_timing", **lstm_timing(S3, dev))
         res = check_roofline_profile_offload(
             ctx.sp, sweep_rows, [sweep_sp[k] for k in SWEEP_PATH], dev,
-            tmp, steps // SAVE_EVERY)
+            tmp, steps // SAVE_EVERY, k3=(kern, Tc, k3_plan))
         clock.phase(4, "roofline_profile_offload", **res)
         if res["failures"]:
             raise RuntimeError(f"roofline_profile_offload: "

@@ -12,10 +12,11 @@ package's keys, plus every rep's rate, each leg's untimed first run and
 its kernel launches) are written only to ``--details``; without it
 nothing is written.
 
-The problem is ``Config()``'s generated 25x1x1 beam in 2 RCB parts,
-assembled in float64 and stepped in float32. (The JAX package reads the
-reference repository's ``Mesh_info/beam_coarse.vtk`` where it exists and
-this beam otherwise; this repository holds no such file.) Each leg runs
+The problem (``headline_problem``), as in the JAX package: the reference
+repository's mesh (``REF_MESH``, 110 nodes / 256 tets) where it exists,
+else ``Config()``'s generated 25x1x1 beam (104 nodes / 150 tets), in 2
+RCB parts, assembled in float64 and stepped in float32; the details'
+``problem`` names the mesh that ran. Each leg runs
 ``ShardedSolver.run`` from a zero state with ``record="none"``: one
 untimed run, which pays the kernel build and the CUDA-graph capture, then
 ``REPS`` timed runs of ``N_STEPS`` steps, each between two device
@@ -50,7 +51,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..mesh import dirichlet_nodes
+from ..mesh import dirichlet_nodes, read_vtk
 from ..parallel import (
     ShardedProblem,
     ShardedSolver,
@@ -60,6 +61,7 @@ from ..parallel import (
 from ..solvers import setup_problem
 from ..utils import resolve_device, synchronize
 from ..utils import roofline as rl
+from . import REF_MESH
 from .sweep import KERNELS, device_info
 
 N_STEPS = 30_000
@@ -255,6 +257,24 @@ def _scale_row(n_steps=SCALE_STEPS, *, cells=SCALE_CELLS,
     }
 
 
+def headline_problem():
+    """(AssembledProblem in float64, element parts, PartitionMaps, the
+    ``problem`` label) of the headline: ``REF_MESH`` where it exists,
+    else ``Config()``'s generated beam, in 2 RCB parts."""
+    cfg = Config()
+    ref = read_vtk(REF_MESH) if REF_MESH.exists() else None
+    prob = setup_problem(cfg, mesh=ref, dtype=torch.float64)
+    mesh = prob.mesh
+    epart = partition_elements(mesh.tetra, mesh.points, 2, method="rcb")
+    dnodes = dirichlet_nodes(mesh.triangles, mesh.points)
+    maps = build_partition_maps(mesh.tetra, epart, mesh.num_points, dnodes)
+    what = (f"reference mesh {REF_MESH.name}" if ref is not None
+            else "generated {}x{}x{}".format(*cfg.beam_cells))
+    problem = (f"cantilever beam, {what}, {mesh.num_points} nodes / "
+               f"{len(mesh.tetra)} tets, 2 shards")
+    return prob, epart, maps, problem
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", type=str, default=None,
@@ -274,12 +294,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    cfg = Config()
-    prob = setup_problem(cfg, dtype=torch.float64)
+    prob, _, maps, problem = headline_problem()
     mesh = prob.mesh
-    epart = partition_elements(mesh.tetra, mesh.points, 2, method="rcb")
-    dnodes = dirichlet_nodes(mesh.triangles, mesh.points)
-    maps = build_partition_maps(mesh.tetra, epart, mesh.num_points, dnodes)
 
     legs, rooflines = {}, {}
 
@@ -302,10 +318,8 @@ def main(argv=None) -> int:
                        n_parts=args.scale_parts, device=dev)
 
     n_elem = len(mesh.tetra)
-    nx, ny, nz = cfg.beam_cells
     details = {
-        "problem": (f"cantilever beam, generated {nx}x{ny}x{nz}, "
-                    f"{mesh.num_points} nodes / {n_elem} tets, 2 shards"),
+        "problem": problem,
         "device": device_info(dev),
         "sync_avoiding_steps_per_sec": avoid_sps,
         "sync_avoiding_mode": avoid_mode,

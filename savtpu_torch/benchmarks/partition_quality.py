@@ -11,10 +11,9 @@ measures graph, rcb and slab (``parallel.partition_elements``; graph
 through the ``native/`` refiner where it builds) on the beam and on two
 geometries that are not slab-like, a thick block and a plate. Host only:
 no device. It prints one JSON line per row and a markdown table, and
-writes the rows only to ``--out``; without it nothing is written. (The
-JAX package also measures the reference repository's unstructured
-``Mesh_info/beam_coarse.vtk`` where it exists; this repository holds no
-such file.)
+writes the rows only to ``--out``; without it nothing is written. Where
+the reference repository's unstructured mesh (``REF_MESH``) exists, it
+is measured too, as ``gmsh_beam_unstructured``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -27,9 +26,10 @@ from pathlib import Path
 
 import numpy as np
 
-from ..mesh import beam_mesh
+from ..mesh import beam_mesh, read_vtk
 from ..parallel import build_partition_maps, partition_elements
 from ..parallel.partition import dual_graph
+from . import REF_MESH
 
 
 def measure(cells, points, n_parts, method):
@@ -88,9 +88,15 @@ def main(argv=None) -> int:
                     help="the JSON file to write (none written without it)")
     args = ap.parse_args(argv)
 
+    meshes = {name: beam_mesh(*cells_n, extent=extent)
+              for name, (cells_n, extent) in GEOMETRIES.items()}
+    # the reference's gmsh mesh is unstructured: the case where FM
+    # refinement can beat coordinate bisection
+    if REF_MESH.exists():
+        meshes["gmsh_beam_unstructured"] = read_vtk(REF_MESH)
     results = []
-    for name, (cells_n, extent) in GEOMETRIES.items():
-        for r in rows(beam_mesh(*cells_n, extent=extent), name):
+    for name, mesh in meshes.items():
+        for r in rows(mesh, name):
             results.append(r)
             print(json.dumps(r), flush=True)
 

@@ -12,9 +12,10 @@ It runs on CUDA unless ``--device`` asks for another device, and raises
 when CUDA is asked for and absent. It writes one JSON file, ``--out``
 (``{"device": ..., "results": [...], "skipped": [...]}``), prints one JSON
 line per case and a markdown table. ``CASES`` and ``QUICK`` are the JAX
-package's. Cases that need what the port does not have yet are listed
-under ``skipped`` with the reason; a case the port supports that fails is
-recorded with its error, and the process then exits with 1.
+package's; the two ``ref`` cases run the reference repository's mesh
+(``REF_MESH``), as the JAX package's do, and where it is absent they are
+listed under ``skipped`` with the reason. A case that fails is recorded
+with its error, and the process then exits with 1.
 
 Which kernels a case runs: ``pallas`` steps through K1 (one launch per
 step) when exchanged and K2 (one launch per run) when comm-free;
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..mesh import dirichlet_nodes
+from ..mesh import dirichlet_nodes, read_vtk
 from ..ops import banded_scan, dense_step
 from ..ops.material import NeoHookean
 from ..parallel import (
@@ -54,6 +55,7 @@ from ..parallel import (
 )
 from ..solvers import setup_problem
 from ..utils import resolve_device, synchronize
+from . import REF_MESH
 
 CASES = [
     # (nx, ny, nz, parts, mode, steps)
@@ -105,23 +107,29 @@ def case_tag(case) -> tuple:
 
 
 def skip_reason(case) -> Optional[str]:
-    """Why the port cannot run a CASES entry yet, or None."""
-    if case_tag(case)[0] == "ref_beam_256":
-        return ("needs the reference repository's Mesh_info/beam_coarse.vtk,"
-                " which this repository does not hold")
+    """Why the port cannot run a CASES entry here, or None: the ``ref``
+    cases need the reference repository's mesh (``REF_MESH``)."""
+    if case_tag(case)[0] == "ref_beam_256" and not REF_MESH.exists():
+        return (f"needs the reference repository's mesh {REF_MESH}, which "
+                "is absent")
     return None
 
 
 def build_case(nx, ny, nz, n_parts, mode, exchange="psum",
                compensated=False, nh=False, *, device, dtype=torch.float32):
-    """The sweep's problem: an nx x ny x nz beam of length nx/ny, RCB
-    parts, assembled in float64 and stepped in ``dtype``; ``nh`` steps
-    the JAX package's sweep material, Neo-Hookean with E = 1e6, nu = 0.3,
-    rho = 1, fz = 0.5. Returns (AssembledProblem, ShardedProblem)."""
+    """The sweep's problem: an nx x ny x nz beam of length nx/ny, or with
+    ``nx == "ref"`` the reference repository's mesh (``REF_MESH``), in
+    RCB parts, assembled and stepped in ``dtype``; ``nh`` steps the JAX
+    package's sweep material, Neo-Hookean with E = 1e6, nu = 0.3, rho =
+    1, fz = 0.5. Returns (AssembledProblem, ShardedProblem)."""
     cfg = Config()
-    cfg.beam_cells = (nx, ny, nz)
-    cfg.beam_extent = (float(nx) / max(ny, 1), 1.0, 1.0)
-    prob = setup_problem(cfg, dtype=dtype)
+    mesh = None
+    if nx == "ref":
+        mesh = read_vtk(REF_MESH)
+    else:
+        cfg.beam_cells = (nx, ny, nz)
+        cfg.beam_extent = (float(nx) / max(ny, 1), 1.0, 1.0)
+    prob = setup_problem(cfg, mesh=mesh, dtype=dtype)
     mesh = prob.mesh
     epart = partition_elements(mesh.tetra, mesh.points, n_parts, "rcb")
     dn = dirichlet_nodes(mesh.triangles, mesh.points)

@@ -579,14 +579,15 @@ def fit_stacked(
     the whole X, Y and feat_mask): the returned model holds this rank's
     contiguous block of the P models (P a multiple of the ranks) on its
     device, trained as in the unsharded fit, and the history covers all
-    P, gathered across ranks. ``init_params`` holds all P models."""
+    P, gathered across ranks. ``init_params`` holds all P models. With
+    ``arch="linear"`` every rank fits all P maps on the host, as the JAX
+    package's fit does whatever its mesh, and keeps its block."""
     if getattr(cfg, "arch", "lstm") == "linear":
+        block = None
         if mesh is not None:
-            raise NotImplementedError(
-                "arch='linear' fits on the host in closed form; call "
-                "fit_stacked without a mesh")
+            device, block = _model_block(mesh, np.shape(X)[0])
         return _fit_stacked_linear(cfg, X, Y, feat_mask, device=device,
-                                   log_fn=log_fn, seqs=seqs)
+                                   log_fn=log_fn, seqs=seqs, block=block)
     ep = stacked_epochs(cfg, X, Y, feat_mask, device=device,
                         init_params=init_params, mesh=mesh)
     hist_arr = _train(ep, replay, log_every, log_fn, stats, "fit_stacked")
@@ -604,13 +605,14 @@ def fit_stacked(
 
 
 def _fit_stacked_linear(cfg, X, Y, feat_mask, *, device=None, log_fn=print,
-                        seqs=None):
+                        seqs=None, block=None):
     """P independent closed-form ridge fits on the host (each a
     (n_past*D)^2 normal-equation solve), stacked into one
     :class:`StackedLinear` on the device. Each rank's train/validation
     split is drawn in turn from ``default_rng(seed + 1)``, the JAX
     package's. History arrays are (1, P), with the chosen ridge lambdas
-    under "ridge_lambda"."""
+    under "ridge_lambda". ``block`` (p0, p1, P) keeps models p0 .. p1 - 1
+    in the module; the history still covers all P."""
     if Y.shape[2] != cfg.n_future:
         raise ValueError(
             "arch='linear' fits one direct n_past->n_future map; set "
@@ -633,8 +635,9 @@ def _fit_stacked_linear(cfg, X, Y, feat_mask, *, device=None, log_fn=print,
         tl.append([h_r["train_loss"][0], h_r["train_r2"][0],
                    h_r["train_rel"][0]])
         vl.append([h_r["val_loss"][0], h_r["val_r2"][0], h_r["val_rel"][0]])
+    p0, p1 = (0, Pn) if block is None else block[:2]
     model = StackedLinear.from_arrays(
-        {k: np.stack([p[k] for p in params_l]) for k in params_l[0]},
+        {k: np.stack([p[k] for p in params_l[p0:p1]]) for k in params_l[0]},
         X.shape[2], dtype=_DTYPES[cfg.dtype], device=dev)
     tl = np.asarray(tl)[None]  # (1, P, 3)
     vl = np.asarray(vl)[None]
@@ -646,6 +649,18 @@ def _fit_stacked_linear(cfg, X, Y, feat_mask, *, device=None, log_fn=print,
            + (f" | lambda {lams}" if seqs is not None else ""))
     hist["ridge_lambda"] = np.asarray(lams, np.float64)[None]  # (1, P)
     return model, hist
+
+
+def _model_block(mesh, Pn: int):
+    """(this rank's device, (p0, p1, Pn)): its contiguous block of the
+    ``Pn`` models, ``Pn`` a multiple of the mesh's ranks."""
+    from ..parallel.sharded import mesh_device
+
+    n, r = mesh.size(), mesh.get_local_rank()
+    if Pn % n:
+        raise ValueError(
+            f"mesh has {n} devices; the model count {Pn} must be a multiple")
+    return mesh_device(mesh), (r * Pn // n, (r + 1) * Pn // n, Pn)
 
 
 def _gather_models(hist_arr: np.ndarray, mesh, dev) -> np.ndarray:
@@ -669,15 +684,7 @@ def stacked_epochs(cfg, X, Y, feat_mask, *, device=None,
     dev = resolve_device(device)
     block = None
     if mesh is not None:
-        from ..parallel.sharded import mesh_device
-
-        n, r, Pn = mesh.size(), mesh.get_local_rank(), np.shape(X)[0]
-        if Pn % n:
-            raise ValueError(
-                f"mesh has {n} devices; the model count {Pn} must be a "
-                "multiple")
-        dev = mesh_device(mesh)
-        block = (r * Pn // n, (r + 1) * Pn // n, Pn)
+        dev, block = _model_block(mesh, np.shape(X)[0])
     dtype = _DTYPES[cfg.dtype]
     X = np.asarray(X, dtype=np.float64)
     Y = np.asarray(Y, dtype=np.float64)

@@ -154,6 +154,15 @@ class FIntOperator:
             self._slots = torch.as_tensor(
                 incident_lists(ed, ndof + 1)[0, :ndof]).to(dev)
 
+    @property
+    def dense_matrix(self) -> torch.Tensor:
+        """K_nobc as one (ndof, ndof) tensor on ``Ke``'s device, assembled
+        at first use in the modes that do not keep it."""
+        if self._dense is None:
+            self._dense = assemble_dense(self.Ke, self.edofs.cpu().numpy(),
+                                         self.ndof)
+        return self._dense
+
     def __call__(self, d: torch.Tensor) -> torch.Tensor:
         d = d.reshape(-1)
         if self.mode == "dense":

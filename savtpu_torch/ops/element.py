@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .quadrature import tet_quadrature
-from .shape import n_basis, shape_derivative, shape_function
+from .shape import jacobian, n_basis, shape_derivative, shape_function
 
 
 def det3(J: torch.Tensor) -> torch.Tensor:
@@ -88,12 +88,11 @@ def batch_element_mkf(deg: int, n_quad: int, material, t: float,
     K = torch.zeros((E, 3 * nb, 3 * nb), dtype=dtype, device=device)
     Mbar = torch.zeros((E, nb, nb), dtype=dtype, device=device)
     F = torch.zeros((E, 3 * nb), dtype=dtype, device=device)
-    Pt = coords.transpose(1, 2)  # (E, 3, nb)
     for q in range(nodes.shape[0]):
         xi, w = nodes[q], weights[q]
         N = shape_function(deg, xi)
         dN = shape_derivative(deg, xi)
-        J = Pt @ dN  # (E, 3, 3)
+        J = jacobian(coords, dN)  # (E, 3, 3)
         detJ = det3(J)
         G = dN @ inv3(J, detJ)  # (E, nb, 3)
         B = strain_displacement(G)
@@ -118,14 +117,21 @@ def batch_element_k(deg: int, n_quad: int, material,
     D = material.D(dtype, device)
     E = coords.shape[0]
     K = torch.zeros((E, 3 * nb, 3 * nb), dtype=dtype, device=device)
-    Pt = coords.transpose(1, 2)
     for q in range(nodes.shape[0]):
         dN = shape_derivative(deg, nodes[q])
-        J = Pt @ dN
+        J = jacobian(coords, dN)
         detJ = det3(J)
         B = strain_displacement(dN @ inv3(J, detJ))
         K = K + (B.transpose(1, 2) @ D @ B) * detJ[:, None, None] * weights[q]
     return K
+
+
+def element_mkf(deg: int, n_quad: int, material, t: float,
+                P: torch.Tensor):
+    """(M_e, K_e, F_e) of one element with nodal coordinates P (nb, 3):
+    :func:`batch_element_mkf` on a batch of one."""
+    M, K, F = batch_element_mkf(deg, n_quad, material, t, P[None])
+    return M[0], K[0], F[0]
 
 
 def element_k(deg: int, n_quad: int, material, P: torch.Tensor):
@@ -149,7 +155,7 @@ def neo_hookean_element_fint(material, P: torch.Tensor,
     xi = torch.as_tensor(nodes[0], dtype=dtype, device=device)
     u = d_e.reshape(-1, 4, 3)
     dN = shape_derivative(1, xi)
-    J = P.transpose(1, 2) @ dN                      # (E, 3, 3)
+    J = jacobian(P, dN)                             # (E, 3, 3)
     detJ = det3(J)
     G = dN @ inv3(J, detJ)                          # (E, 4, 3) physical
     Fdef = torch.eye(3, dtype=dtype, device=device) + u.transpose(1, 2) @ G

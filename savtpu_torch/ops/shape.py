@@ -67,5 +67,17 @@ def shape_derivative(deg: int, xi: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported polynomial degree {deg}")
 
 
+def jacobian(P: torch.Tensor, dN: torch.Tensor) -> torch.Tensor:
+    """Isoparametric Jacobian J = P^T dN (..., 3, 3) of nodal coordinates
+    P (..., nb, 3) and parametric derivatives dN (nb, 3)."""
+    return P.transpose(-1, -2) @ dN
+
+
+def isoparametric_map(P: torch.Tensor, N: torch.Tensor) -> torch.Tensor:
+    """Physical coordinates (..., 3) of a parametric point with shape
+    values N (nb,): X_i = sum_a P[..., a, i] N_a."""
+    return P.transpose(-1, -2) @ N
+
+
 def n_basis(deg: int) -> int:
     return {1: 4, 2: 10}[deg]

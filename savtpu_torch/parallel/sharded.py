@@ -942,6 +942,21 @@ class ShardedProblem:
             out[p, :n_real] = vec[self.local_dofs_global[p, :n_real]]
         return torch.as_tensor(out, dtype=self.dtype).to(self.device)
 
+    def globalize(self, stacked, ndof: int) -> np.ndarray:
+        """(P, DL) stacked -> (ndof,) global NumPy vector of the input's
+        dtype: each DOF takes its lowest part's value (the parts are
+        written in reverse order; duplicates agree in the exchanged
+        path). ``stacked`` is a tensor on any device or an array."""
+        if torch.is_tensor(stacked):
+            stacked = stacked.detach().cpu().numpy()
+        stacked = np.asarray(stacked)
+        out = np.zeros(ndof, dtype=stacked.dtype)
+        dm = self.dof_mask.cpu().numpy()
+        for p in range(self.n_parts - 1, -1, -1):
+            n_real = int(dm[p].sum())
+            out[self.local_dofs_global[p, :n_real]] = stacked[p, :n_real]
+        return out
+
     # ------------------------------------------------------------------
     # stacked step machinery (leading axis = parts)
     # ------------------------------------------------------------------

@@ -227,6 +227,15 @@ def _stack_members(models, ens: int) -> Dict[str, np.ndarray]:
         (-1,) + np.shape(models[0].params[k])[1:]) for k in keys}
 
 
+def owner_counts(sgi, smask, SD) -> np.ndarray:
+    """(SD,) float number of owner ranks of each global shared DOF, at
+    least 1 (host); ``sgi`` and ``smask`` (P, 3*S_max) arrays or tensors.
+    :func:`prediction_consensus` counts the same from ``sp.owners``."""
+    cnt = np.zeros(SD)
+    np.add.at(cnt, np.asarray(sgi).reshape(-1), np.asarray(smask).reshape(-1))
+    return np.maximum(cnt, 1.0)
+
+
 def prediction_consensus(preds: torch.Tensor, sp) -> torch.Tensor:
     """Average every owner rank's prediction of each duplicated shared DOF
     (SurrogateConfig.pred_consensus). preds (P, T, 3*S_max) -> same shape

@@ -14,8 +14,9 @@ permute exchange, an unramped load, resync blocks, checkpoints) and a
 stage's command line; then the serial-solver and steady slice (stage 1
 at ``deg = 2``, stage 3's grid, the serial runner with linear and
 Neo-Hookean forces, eigen modes). Runs in a subprocess whose import system refuses those
-names. The device-mesh path (the five stages over a one-rank gloo mesh)
-runs the same way, in a subprocess of its own."""
+names. The device-mesh path (the five stages over a one-rank gloo mesh,
+then the linear fit under that mesh, ``globalize`` and the native
+partitioner) runs the same way, in a subprocess of its own."""
 
 import subprocess
 import sys
@@ -367,6 +368,24 @@ MESH_SCRIPT = textwrap.dedent(
     assert sim.ctx.solver.mesh is mesh and sim.ctx.comm.world == 1
     assert metrics and all(v == v for v in metrics.values()
                            if isinstance(v, float))
+
+    # the linear fit under the mesh, globalize, the native partitioner
+    import numpy as np
+    sys.path.insert(0, {root!r} + "/tests")
+    import torch_mesh_cases as cases
+    from savtpu_torch.native import native_partition
+    from savtpu_torch.parallel.partition import dual_graph
+
+    got, ref = cases.fit_case(mesh, "linear"), cases.fit_case(None, "linear")
+    assert set(got) == set(ref)
+    assert all(np.array_equal(got[k], ref[k]) for k in ref)
+    prob, sp = cases.build_problem(cases.SOLVER_CASES["one_rank_dense"][1])
+    v = np.arange(prob.ndof, dtype=np.float64)
+    g = sp.globalize(sp.localize(v), prob.ndof)
+    assert g.dtype == np.float64 and (g[g != 0] == v[g != 0]).all()
+    xadj, adjncy = dual_graph(prob.mesh.tetra)
+    ep = native_partition(xadj, adjncy, 3)
+    assert ep is not None and sorted(set(ep.tolist())) == [0, 1, 2]
     dist.destroy_process_group()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
@@ -378,7 +397,9 @@ MESH_SCRIPT = textwrap.dedent(
 def test_mesh_path_runs_one_gloo_rank_without_jax(tmp_path):
     """make_device_mesh and the five stages of api.Simulation over a
     one-rank gloo mesh (stages 1 and 4 over the mesh, banded compensated:
-    K3's plain version per rank) with JAX and savtpu blocked."""
+    K3's plain version per rank), then ``fit_stacked(mesh=,
+    arch="linear")`` against the unsharded fit, ``globalize`` and
+    ``native_partition``, with JAX and savtpu blocked."""
     code = MESH_SCRIPT.format(blocked=BLOCKED, root=str(ROOT),
                               workdir=str(tmp_path))
     res = subprocess.run(

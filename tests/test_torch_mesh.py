@@ -26,6 +26,16 @@ Tolerance: float64, the norm of the difference within 1e-12 of the norm
 of the reference, as savtpu's own mesh tests; the ranks differ from the
 emulation only in the order of the sums (a rank's batched products and
 the all-reduce) and from savtpu in that and the matvec's order.
+
+The float32 case (``float32_online_kernel``, ROADMAP C1) is held to
+float32's own envelope instead: with chip_smoke.py's measure
+(``max_rel``: the largest |a - b| of a part over b's largest, the largest
+over the parts), its departure from the float32 emulation (a) and from a
+float64 run of the same problem (c) are each at most ENVELOPE times the
+float32 emulation's own departure from that float64 run (b). On its 8x4x4
+beam in 8 parts some shared DOFs have 4 owners, so the all-reduce adds
+ranks' partial sums in another order than the emulation; where no DOF has
+more than 2 owners the float32 ranks give the emulation's bits.
 """
 
 import numpy as np
@@ -50,7 +60,13 @@ import torch_mesh_cases as cases
 torch.set_num_threads(1)
 
 TOL = 1e-12
-MULTI = [n for n, c in cases.SOLVER_CASES.items() if c[0] > 1]
+# (a) and (c) of the float32 case against (b): up to 1.8 measured at 300
+# to 1,200 steps (the two float32 runs round independently)
+ENVELOPE = 3.0
+F32 = [n for n, c in cases.SOLVER_CASES.items()
+       if c[1]["dtype"] == "float32"]
+MULTI = [n for n, c in cases.SOLVER_CASES.items()
+         if c[0] > 1 and n not in F32]
 ONE = [n for n, c in cases.SOLVER_CASES.items() if c[0] == 1]
 
 
@@ -65,7 +81,8 @@ def worlds(tmp_path_factory):
     for name, (world, _, _) in cases.REFUSED_CASES.items():
         by_world.setdefault(world, dict(solver=[])).setdefault(
             "refused", []).append(name)
-    by_world.setdefault(2, dict(solver=[]))["fit"] = True
+    by_world.setdefault(2, dict(solver=[]))["fit"] = ["lstm", "linear"]
+    by_world.setdefault(4, dict(solver=[]))["fit"] = ["linear"]
     by_world.setdefault(1, dict(solver=[]))["gates"] = True
     specs = {}
     for world, spec in by_world.items():
@@ -152,6 +169,28 @@ def test_mesh_matches_emulation_and_savtpu_shard_map(worlds, name):
         _close(got[k], ref[k], f"{k} vs savtpu shard_map")
 
 
+@pytest.mark.parametrize("name", F32)
+def test_float32_mesh_lies_inside_the_float32_envelope(worlds, name):
+    got = _load(worlds, name)
+    e32 = cases.solver_case(name)
+    e64 = cases.solver_case(name, dtype="float64")
+    assert set(got) == set(e32) == set(e64)
+    for k in e32:
+        if k.endswith(("_t", "_preds")):
+            continue
+        assert got[k].dtype == e32[k].dtype == np.float32, k
+        a = cases.max_rel(got[k], e32[k])
+        b = cases.max_rel(e32[k], e64[k])
+        c = cases.max_rel(got[k], e64[k])
+        if k == "1_shared":
+            # the comm-free block's shared rows are the predictions,
+            # overwritten on every rank alike
+            assert a == 0.0 and 0.0 < b < 1e-6, (a, b)
+            continue
+        assert 0.0 < b < 1e-5, (k, b)
+        assert a <= ENVELOPE * b and c <= ENVELOPE * b, (k, a, b, c)
+
+
 @pytest.mark.parametrize("name", ONE)
 def test_one_rank_mesh_is_emulation_bit_for_bit(worlds, name):
     got = _load(worlds, name)
@@ -193,3 +232,19 @@ def test_fit_stacked_under_mesh_equals_unsharded(worlds):
     assert set(got) == set(ref)
     for k in ref:
         _close(got[k], ref[k], k)
+
+
+def test_linear_fit_under_mesh_is_the_unsharded_fit(worlds):
+    """arch="linear" under a mesh: every rank fits all P maps on the host
+    and keeps its block, so over 2 and 4 ranks the blocks joined in rank
+    order are the unsharded fit's maps bit for bit, and each rank's
+    history covers all P (rank 0's is kept)."""
+    ref = cases.fit_case(arch="linear")
+    assert ref["param.lin.W"].shape[0] == cases.FIT_MODELS
+    assert ref["hist.train_loss"].shape == (1, cases.FIT_MODELS)
+    for world in (2, 4):
+        got = _load(worlds, cases.fit_name("linear", world))
+        assert set(got) == set(ref), world
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k],
+                                          err_msg=f"{k}, {world} ranks")

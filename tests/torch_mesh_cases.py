@@ -37,20 +37,27 @@ SIN = "sin"            # runs' preds: seeded sinusoids on the shared slots
 PREV = "prev_shared"   # runs' preds: the previous run's shared rows
 
 
-def _beam(cells, extent, parts, method="rcb", **build):
+def _beam(cells, extent, parts, method="rcb", dtype="float64", **build):
     return dict(mesh=("beam", cells, extent), parts=parts, method=method,
-                build=build)
+                dtype=dtype, build=build)
 
 
 def _tube(dims, parts, dirichlet_axis=0, **build):
     return dict(mesh=("tube",) + tuple(dims), parts=parts, method="box",
-                dirichlet_axis=dirichlet_axis, build=build)
+                dirichlet_axis=dirichlet_axis, dtype="float64", build=build)
 
 
-def _run(steps, sync=True, preds=None, record="all", save_every=1):
+def _run(steps, sync=True, preds=None, record="all", save_every=1,
+         resume=False):
+    """One ``solver.run`` of a case, from the problem's initial state or,
+    with ``resume``, from the previous run's carry (as stage 4's blocks
+    follow its exchanged warm-up)."""
     return dict(steps=steps, sync=sync, preds=preds, record=record,
-                save_every=save_every)
+                save_every=save_every, resume=resume)
 
+
+# the float32 case's exchanged warm-up and comm-free block, in steps
+F32_WARM, F32_BLOCK = 300, 300
 
 # name -> (world size, problem spec, runs): each mirrors one of savtpu's
 # shard_map tests (named in tests/test_torch_mesh.py)
@@ -95,6 +102,15 @@ SOLVER_CASES = {
         8, _beam((16, 2, 2), (8.0, 1.0, 1.0), 8, fint_mode="banded",
                  compensated=True),
         [_run(60, sync=False, preds=SIN, save_every=5)]),
+    # the slice's kind in float32 (ROADMAP C1): an exchanged warm-up, then
+    # a comm-free block of K3 (its plain version here) from its end state;
+    # held to the float32 envelope, not to TOL (tests/test_torch_mesh.py)
+    "float32_online_kernel": (
+        4, _beam((8, 4, 4), (4.0, 2.0, 2.0), 8, dtype="float32",
+                 fint_mode="banded", compensated=True),
+        [_run(F32_WARM, save_every=5),
+         _run(F32_BLOCK, sync=False, preds=SIN, save_every=5,
+              resume=True)]),
     # one rank: the mesh path must give the emulated run's bits
     "one_rank_dense": (
         1, _beam((8, 1, 1), (8.0, 1.0, 1.0), 4, fint_mode="dense"),
@@ -128,25 +144,28 @@ REFUSED_CASES = {
 }
 
 
-def build_problem(spec, device="cpu"):
-    """(prob, ShardedProblem) of a spec, float64, on ``device``."""
+def build_problem(spec, device="cpu", dtype=None):
+    """(prob, ShardedProblem) of a spec on ``device``, assembled and
+    stepped in ``dtype`` (a name; default the spec's), as the pipeline
+    does for its state dtype."""
     cfg = Config()
+    dt = getattr(torch, dtype or spec["dtype"])
     kind = spec["mesh"][0]
     if kind == "beam":
         cfg.beam_cells, cfg.beam_extent = spec["mesh"][1:]
-        prob = setup_problem(cfg, dtype=torch.float64)
+        prob = setup_problem(cfg, dtype=dt)
     else:
         n_r, n_theta, n_z = spec["mesh"][1:]
         mesh = tube_mesh(n_r=n_r, n_theta=n_theta, n_z=n_z)
-        prob = setup_problem(cfg, mesh=mesh, dtype=torch.float64)
+        prob = setup_problem(cfg, mesh=mesh, dtype=dt)
     m = prob.mesh
     ep = partition_elements(m.tetra, m.points, spec["parts"],
                             method=spec["method"])
     dn = dirichlet_nodes(m.triangles, m.points,
                          axis=spec.get("dirichlet_axis", 0))
     maps = build_partition_maps(m.tetra, ep, m.num_points, dn)
-    sp = ShardedProblem.build(prob, maps, dtype=torch.float64,
-                              device=device, **spec["build"])
+    sp = ShardedProblem.build(prob, maps, dtype=dt, device=device,
+                              **spec["build"])
     return prob, sp
 
 
@@ -165,17 +184,18 @@ def _np(x):
         x.detach().cpu().numpy() if torch.is_tensor(x) else x)
 
 
-def solver_case(name: str, mesh=None) -> dict:
-    """Run solver case ``name`` emulated (``mesh`` None) or over ``mesh``;
-    returns {"<run>_traj" | "_shared" | "_d" | "_dn" | "_t", "<run>_preds":
-    numpy, the global layout} (every rank gets the whole)."""
+def solver_case(name: str, mesh=None, dtype=None) -> dict:
+    """Run solver case ``name`` emulated (``mesh`` None) or over ``mesh``,
+    in ``dtype`` (default the spec's); returns {"<run>_traj" | "_shared" |
+    "_d" | "_dn" | "_t", "<run>_preds": numpy, the global layout} (every
+    rank gets the whole)."""
     _, spec, runs = SOLVER_CASES[name]
-    prob, sp = build_problem(spec)
+    prob, sp = build_problem(spec, dtype=dtype)
     solver = ShardedSolver(sp, mesh)
     d0 = solver.sp.localize(prob.d0)
     dn = solver.sp.localize(prob.dn)
     smask = sp.smask.numpy()
-    out, prev = {}, None
+    out, prev, carry = {}, None, (d0, dn, 0.0)
     for i, run in enumerate(runs):
         preds = None
         if run["preds"] == SIN:
@@ -185,8 +205,9 @@ def solver_case(name: str, mesh=None) -> dict:
         elif run["preds"] == PREV:
             preds = prev
             out[f"{i}_preds"] = _np(solver.gather(prev))
+        start = carry if run.get("resume") else (d0, dn, 0.0)
         (traj, shared), carry = solver.run(
-            d0, dn, 0.0, run["steps"], sync=run["sync"], preds=preds,
+            *start, run["steps"], sync=run["sync"], preds=preds,
             record=run["record"], save_every=run["save_every"])
         prev = shared
         for k, v in (("traj", traj), ("shared", shared), ("d", carry[0]),
@@ -195,6 +216,17 @@ def solver_case(name: str, mesh=None) -> dict:
                 out[f"{i}_{k}"] = _np(solver.gather(v))
         out[f"{i}_t"] = _np(carry[2])
     return out
+
+
+def max_rel(a, b) -> float:
+    """chip_smoke.py's ``artifact_diff`` measure of two stacked arrays
+    (parts on the leading axis): the largest |a - b| of a part over b's
+    largest, the largest over the parts, in float64."""
+    a, b = (np.asarray(x, np.float64) for x in (a, b))
+    assert a.shape == b.shape and np.isfinite(a).all(), (a.shape, b.shape)
+    return max(float(np.abs(a[p] - b[p]).max())
+               / max(float(np.abs(b[p]).max()), 1e-300)
+               for p in range(a.shape[0]))
 
 
 def refused_case(name: str, mesh) -> str:
@@ -225,8 +257,9 @@ def fit_inputs(seed: int = 0):
     return X, Y, fm
 
 
-def fit_cfg():
+def fit_cfg(arch="lstm"):
     s = Config().surrogate
+    s.arch = arch
     s.n_past, s.n_future = 4, 3
     s.hidden_size, s.num_layers_encoder = 6, 2
     s.batch_size, s.num_epochs = 3, 6
@@ -235,12 +268,13 @@ def fit_cfg():
     return s
 
 
-def fit_case(mesh=None) -> dict:
-    """fit_stacked on fit_inputs(): the trained arrays of all models and
-    the history (every rank gets the whole)."""
+def fit_case(mesh=None, arch="lstm") -> dict:
+    """fit_stacked on fit_inputs() with surrogate ``arch`` ("lstm" or
+    "linear"): the trained arrays of all models and the history (every
+    rank gets the whole; the blocks joined in rank order)."""
     X, Y, fm = fit_inputs()
-    model, hist = fit_stacked(fit_cfg(), X, Y, fm, device="cpu", log_every=0,
-                              mesh=mesh)
+    model, hist = fit_stacked(fit_cfg(arch), X, Y, fm, device="cpu",
+                              log_every=0, log_fn=lambda *a: None, mesh=mesh)
     out = {f"hist.{k}": np.asarray(v) for k, v in hist.items()}
     for k, v in model.state_dict().items():
         if mesh is not None:
@@ -307,13 +341,19 @@ def pipeline_case(kind: str, cfg_path: str, mesh=None) -> dict:
     raise ValueError(f"unknown pipeline case {kind!r}")
 
 
-def write_spec(path: Path, solver=(), refused=(), fit=False, gates=False,
+def fit_name(arch: str, world: int) -> str:
+    """The worker's output name of the fit case of ``arch`` over
+    ``world`` ranks."""
+    return "fit_stacked" if arch == "lstm" else f"fit_{arch}_{world}ranks"
+
+
+def write_spec(path: Path, solver=(), refused=(), fit=(), gates=False,
                pipeline=()) -> None:
-    """The worker's case list: solver and refused case names, whether to
-    run the fit and gates cases, and pipeline cases as [name, kind,
-    cfg_path]."""
+    """The worker's case list: solver and refused case names, the archs
+    of the fit cases, whether to run the gates case, and pipeline cases
+    as [name, kind, cfg_path]."""
     path.write_text(json.dumps(dict(solver=list(solver),
-                                    refused=list(refused), fit=fit,
+                                    refused=list(refused), fit=list(fit),
                                     gates=gates,
                                     pipeline=[list(p) for p in pipeline])))
 

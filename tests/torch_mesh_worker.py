@@ -39,8 +39,8 @@ def main(spec_path, out_dir, rank, world, init):
             for n in spec["solver"]]
     jobs += [(n, lambda n=n: {"message": np.asarray(
         cases.refused_case(n, mesh))}) for n in spec["refused"]]
-    if spec.get("fit"):
-        jobs.append(("fit_stacked", lambda: cases.fit_case(mesh)))
+    jobs += [(cases.fit_name(a, world), lambda a=a: cases.fit_case(mesh, a))
+             for a in spec.get("fit", ())]
     if spec.get("gates"):
         jobs.append(("gates", lambda: cases.gates_case(mesh)))
     jobs += [(n, lambda k=k, c=c: cases.pipeline_case(k, c, mesh))
